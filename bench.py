@@ -1,241 +1,228 @@
-"""Benchmark: point-timesteps/s on one TPU chip at ~1M road points.
+"""Benchmark: point-timesteps/s on one GPU at ~1M road points.
 
-Metric defined by BASELINE.md (the reference publishes no numbers; the
-workload is 8,881 steps x N points, float64 on CPU threads).  We measure the
-steady-state throughput of the batched forecast scan in float32 on the real
-chip, streaming forcing in time chunks like a production run would.
+Times, in steady state after compilation, on the same 64-step forcing chunk:
 
-vs_baseline: ratio against a MEASURED CPU-node throughput.  The reference
-repo ships no numbers (BASELINE.md), so the denominator is this repo's own
-scan engine -- full physics, identical numerics -- run on the host CPU
-backend: 1.976e6 point-steps/s/core measured by tools/bench_cpu_baseline.py
-(8192 points x 2961 steps, float32, best of 3), scaled to the 48-core node
-the reference's WorkQueue targets (examples/example1/src/WorkQueue.h:15-131)
-= 9.49e7 point-steps/s/node.
+  * ``scan``:   the plain XLA path, model.scan_steps (step.py under lax.scan);
+  * ``kernel``: the fused Pallas kernel (ops.pallas_step.pallas_scan) on the
+    SLIM tile-major forcing layout the production engine feeds it, once per
+    block size in BENCH_BLOCKS;
+  * ``fused_chunk``: the station production chunk (_Engine.chunk_fn: station
+    prep gather + one-hot expansion + kernel in one jit);
+  * ``grid_chunk``: the NWP-grid production chunk (device interpolation +
+    per-point prep in the kernel layout + kernel).
+
+Needs a GPU: a run that finds none fails.  Prints the device and its power
+limit, then one JSON line.  Env knobs: BENCH_POINTS, BENCH_TCHUNK,
+BENCH_CHUNKS, BENCH_BLOCKS (comma list).
 """
 from __future__ import annotations
 
 import json
 import os
+import subprocess
 import sys
 import time
 
 import numpy as np
 
-# measured: tools/bench_cpu_baseline.py (see BASELINE.md "Measured" table)
-CPU_POINT_STEPS_PER_S_PER_CORE = 1.976e6
-BASELINE_NODE_CORES = 48
-BASELINE_POINT_STEPS_PER_S = CPU_POINT_STEPS_PER_S_PER_CORE * BASELINE_NODE_CORES
+
+def gpu_name_and_power() -> str:
+    """``name, power.limit`` of the card, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
 
 
-def main():
+def device_info() -> dict:
+    import jax
+    d = jax.devices()[0]
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices())}
+
+
+def timed(fn, args, n: int) -> float:
+    """Seconds per call of ``fn(*args)`` over n calls after one warm-up
+    call (which compiles); every call ends in block_until_ready."""
+    import jax
+    jax.block_until_ready(fn(*args))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        r = fn(*args)
+    jax.block_until_ready(r)
+    return (time.perf_counter() - t0) / n
+
+
+def widened_chunk(model, npoints: int, t_chunk: int, seed: int = 0,
+                  scenario: str = "winter_mix"):
+    """(state [P] float32, prep [t_chunk, P] float32) for ``npoints`` points
+    built on device from a 4,096-point synthetic seed tiled across the point
+    axis (the physics has no data-dependent cost, so tiling is fair)."""
     import jax
     import jax.numpy as jnp
 
-    from roadsurf_tpu.config import ModelSettings
-    from roadsurf_tpu.forcing import Calendar
     from roadsurf_tpu.io.synthetic import synthetic_raw
-    from roadsurf_tpu.model import Model, scan_steps
-    from roadsurf_tpu.state import default_point_params
+    from roadsurf_tpu.state import default_point_params, init_state
 
-    npoints = int(os.environ.get("BENCH_POINTS", 1 << 20))
-    t_chunk = int(os.environ.get("BENCH_TCHUNK", 64))
-    n_chunks = int(os.environ.get("BENCH_CHUNKS", 4))
-    backend = jax.default_backend()
-
-    settings = ModelSettings(sim_len=t_chunk, dt=30.0)
-    model = Model(settings)
-
-    # one representative forcing chunk; identical cost to fresh chunks
-    # (branch-free physics -- no data-dependent work), so reuse is fair.
-    # Host builds a small chunk; tiling to full width and the initial state
-    # construction (incl. the eager boundary-layer fixed point) run inside
-    # one jit so remote dispatch overhead stays O(1).
     small = min(npoints, 4096)
-    raw, cal = synthetic_raw(small, t_chunk, dt=30.0, seed=0,
-                             dtype=np.float32)
-    pts = default_point_params(small)
-    prep_small = model.prepare(raw, pts, cal)
     reps = -(-npoints // small)
+    raw, cal = synthetic_raw(small, t_chunk, dt=30.0, seed=seed,
+                             scenario=scenario, dtype=np.float32)
+    prep_small = model.prepare(raw, default_point_params(small), cal)
     row0 = jnp.stack([jnp.asarray(np.asarray(x)[:, 0], np.float32)
                       for x in (raw.tair, raw.vz, raw.rhz, raw.tsurf_obs)])
     date0 = (int(cal.year[0]), int(cal.month[0]), int(cal.day[0]))
 
     @jax.jit
     def build(prep_small, row0):
-        def widen(x):
-            if x.ndim == 2:
-                return jnp.tile(x, (1, reps))[:, :npoints]
-            return x
+        widen = lambda x: (jnp.tile(x, (1, reps))[:, :npoints]
+                           if x.ndim == 2 else x)
         prep = jax.tree.map(widen, prep_small)
         wide0 = jnp.tile(row0, (1, reps))[:, :npoints]
-        from roadsurf_tpu.state import init_state
         state = init_state(model.settings, model.params, model.grid,
                            wide0[0], wide0[1], wide0[2], wide0[3], date0,
                            depth_idx=model.cfg.depth_idx,
                            depth_w=model.cfg.depth_w,
-                           use_depth=model.cfg.use_depth)
+                           use_depth=model.cfg.use_depth, dtype=jnp.float32)
         return prep, state
 
     prep, state = build(prep_small, row0)
-    jax.block_until_ready(state)
-    ones = jnp.ones(prep.tair.shape, prep.tair.dtype)
-    obs = jnp.full((npoints,), -9999.9, prep.tair.dtype)
+    return state, prep
 
-    @jax.jit
-    def chunk(state, prep, sw, lw):
-        final, _ = scan_steps(state, prep, sw, lw, obs, model.cfg,
-                              model.grid, model.params, collect=False)
-        return final
 
-    # warmup/compile
-    state2 = chunk(state, prep, ones, ones)
-    jax.block_until_ready(state2)
+def slim_forcing(prep, obs, subl: int):
+    """Prepared [T, P] channels -> the kernel's SLIM tile-major forcing
+    [n_tiles, T, NCH_SLIM, subl, LANE], its [T] traffic-friction channel
+    and the [4, P] aux rows (no coupling)."""
+    import jax.numpy as jnp
 
-    t0 = time.perf_counter()
-    for _ in range(n_chunks):
-        state2 = chunk(state2, prep, ones, ones)
-    jax.block_until_ready(state2)
-    scan_dt = time.perf_counter() - t0
-    scan_rate = npoints * t_chunk * n_chunks / scan_dt
-
-    # ---- Pallas fused whole-scan kernel (the flagship engine) -----------
     from roadsurf_tpu.ops import pallas_step as ps
-    pallas_rate = None
-    if backend == "tpu" and npoints % ps.TILE_P == 0:
-        tmp0, scal0 = ps.pack_state(state)
-        forc = ps.pack_forcing(prep, ones, ones, obs)
-        stride = t_chunk  # one output row per chunk (production cadence)
-        pal = jax.jit(lambda t, s, f: ps.pallas_scan(
+
+    T, P = prep.tair.shape
+    ones = jnp.ones((T, P), jnp.float32)
+    full = ps.pack_forcing(prep, ones, ones, obs)          # [T, NCH, P]
+    slim = full[:, list(ps.SLIM_CHANNELS)]
+    tile_p = subl * ps.LANE
+    slim = slim.reshape(T, ps.NCH_SLIM, P // tile_p, subl, ps.LANE)
+    slim = jnp.transpose(slim, (2, 0, 1, 3, 4))
+    zero = jnp.zeros((P,), jnp.float32)
+    aux = jnp.stack([zero, zero, zero, jnp.asarray(obs, jnp.float32)])
+    return slim, jnp.asarray(prep.trf_fric, jnp.float32), aux
+
+
+def main():
+    import jax
+    import jax.numpy as jnp
+
+    from roadsurf_tpu import production, use_compile_cache
+    from roadsurf_tpu.config import ModelSettings
+    from roadsurf_tpu.forcing import Calendar
+    from roadsurf_tpu.io.synthetic import synthetic_raw
+    from roadsurf_tpu.model import Model, scan_steps
+    from roadsurf_tpu.ops import pallas_step as ps
+    from roadsurf_tpu.parallel.sharding import make_mesh
+    from roadsurf_tpu.state import default_point_params
+
+    use_compile_cache()
+    if jax.default_backend() != "gpu":
+        sys.exit(f"bench.py measures the GPU; the backend is "
+                 f"{jax.default_backend()!r}")
+    card = gpu_name_and_power()
+    print(f"device: {device_info()} | {card} | "
+          f"XLA_FLAGS={os.environ.get('XLA_FLAGS', '')!r}")
+
+    npoints = int(os.environ.get("BENCH_POINTS", 1 << 20))
+    t_chunk = int(os.environ.get("BENCH_TCHUNK", 64))
+    n_chunks = int(os.environ.get("BENCH_CHUNKS", 4))
+    blocks = [int(b) for b in
+              os.environ.get("BENCH_BLOCKS", str(ps.BLOCK)).split(",")]
+    assert npoints % ps.TILE_P == 0, npoints
+    model = Model(ModelSettings(sim_len=t_chunk, dt=30.0))
+    state, prep = widened_chunk(model, npoints, t_chunk)
+    obs = jnp.full((npoints,), -9999.9, jnp.float32)
+    rate = lambda sec: npoints * t_chunk / sec
+
+    # ---- plain XLA path --------------------------------------------------
+    @jax.jit
+    def scan_chunk(state, prep, obs):
+        ones = jnp.ones(prep.tair.shape, jnp.float32)
+        return scan_steps(state, prep, ones, ones, obs, model.cfg,
+                          model.grid, model.params, collect=False)[0]
+
+    rates = {"scan": rate(timed(scan_chunk, (state, prep, obs), n_chunks))}
+
+    # ---- fused kernel, slim tile-major forcing -------------------------
+    tmp0, scal0 = ps.pack_state(state)
+    forc, trf, aux = slim_forcing(prep, obs, ps.SUBL)
+    block = ps.BLOCK
+    for blk in blocks:
+        ps.BLOCK = blk               # read when the kernel is traced
+        kern = jax.jit(lambda t, s, f, r, a: ps.pallas_scan(
             t, s, f, model.cfg, model.params, model.grid,
-            out_stride=stride, chunk_t=min(8, t_chunk)))
-        r = pal(tmp0, scal0, forc)
-        jax.block_until_ready(r)
-        t0 = time.perf_counter()
-        for _ in range(n_chunks):
-            r = pal(tmp0, scal0, forc)
-        jax.block_until_ready(r)
-        pal_dt = time.perf_counter() - t0
-        pallas_rate = npoints * t_chunk * n_chunks / pal_dt
+            out_stride=t_chunk, slim_trf=r, aux_rows=a))
+        rates[f"kernel_block{blk}"] = rate(
+            timed(kern, (tmp0, scal0, forc, trf, aux), n_chunks))
+    ps.BLOCK = block
+    del forc
 
-    # ---- fused production chunk: the operational rate WITH all forcing
-    # production on device (station-level prep + one-hot MXU expansion +
-    # kernel in one jit per chunk; production.StationExpander fused path)
-    fused_rate = None
-    if backend == "tpu" and npoints % ps.TILE_P == 0:
-        try:
-            from roadsurf_tpu import production
-            from roadsurf_tpu.parallel.sharding import make_mesh
+    # ---- fused station production chunk ----------------------------------
+    S = 2048
+    T2 = 8 * t_chunk + 1
+    raw_st, cal2 = synthetic_raw(S, T2, dt=30.0, seed=7,
+                                 scenario="winter_mix", dtype=np.float32)
+    mesh = make_mesh()
+    st_idx = np.random.default_rng(7).integers(0, S, size=npoints)
+    settings2 = ModelSettings(sim_len=T2, dt=30.0, use_relaxation=False)
+    model2 = Model(settings2)
+    ctx = {"st_pts": default_point_params(S + 1), "anchors": None,
+           "settings": settings2, "params": model2.params,
+           "hour": cal2.hour, "t_total": T2}
+    exp = production.StationExpander(raw_st, st_idx, mesh, chunk_t=t_chunk,
+                                     prep_ctx=ctx)
+    eng = production._Engine(model2, exp, default_point_params(npoints),
+                             cal2, state, mesh=mesh, chunk_t=t_chunk)
+    assert eng.fused
+    fn = eng.chunk_fn(t_chunk, False)
+    rates["fused_chunk"] = rate(timed(
+        lambda: fn(eng.tmp0, eng.scal0, np.int32(t_chunk), eng.data), (),
+        n_chunks))
 
-            S = 2048
-            T2 = 8 * t_chunk + 1
-            raw_st, cal2 = synthetic_raw(S, T2, dt=30.0, seed=7,
-                                         scenario="winter_mix",
-                                         dtype=np.float32)
-            mesh = make_mesh()
-            rng = np.random.default_rng(7)
-            st_idx = rng.integers(0, S, size=npoints)
-            settings2 = ModelSettings(sim_len=T2, dt=30.0,
-                                      use_relaxation=False)
-            model2 = Model(settings2)
-            ctx = {"st_pts": default_point_params(S + 1), "anchors": None,
-                   "settings": settings2, "params": model2.params,
-                   "hour": cal2.hour, "t_total": T2}
-            exp = production.StationExpander(raw_st, st_idx, mesh,
-                                             chunk_t=t_chunk, prep_ctx=ctx)
-            eng = production._Engine(model2, exp,
-                                     default_point_params(npoints), cal2,
-                                     state, mesh=mesh, chunk_t=t_chunk)
-            fn = eng.chunk_fn(t_chunk, False)
-            tmp, scal = eng.tmp0, eng.scal0
-            tmp, scal, _ = fn(tmp, scal, np.int32(0), eng.data)
-            jax.block_until_ready(scal)
-            t0 = time.perf_counter()
-            for k in range(n_chunks):
-                tmp, scal, _ = fn(tmp, scal, np.int32((k % 8) * t_chunk),
-                                  eng.data)
-            jax.block_until_ready(scal)
-            fdt_ = time.perf_counter() - t0
-            fused_rate = npoints * t_chunk * n_chunks / fdt_
-        except Exception as e:  # keep the headline alive on bench-rig quirks
-            print(f"fused-chunk stage skipped: {type(e).__name__}: {e}",
-                  file=sys.stderr)
+    # ---- fused-generic NWP grid production chunk ---------------------------
+    t0e = 1575158400
+    sim_ep = t0e + (30.0 * np.arange(T2)).astype(np.int64)
+    gt = t0e + 3600 * np.arange(1 + int(T2 * 30.0 // 3600) + 1,
+                                dtype=np.int64)
+    rng = np.random.default_rng(11)
+    ny, nx = 300, 400
+    gf = {n: rng.normal(0.0 if n in ("prec", "sw") else -3.0, 2.0,
+                        (len(gt), ny, nx))
+          for n in ("tair", "tdew", "rhz", "vz", "prec", "sw", "lw")}
+    gf["rhz"] = np.abs(gf["rhz"]) + 60.0
+    gf["vz"] = np.abs(gf["vz"]) + 1.0
+    gf["prec"] = np.abs(gf["prec"])
+    gf["sw"] = np.abs(gf["sw"])
+    gf["lw"] = 280.0 + gf["lw"]
+    gexp = production.GridExpander(
+        gt, np.linspace(59.6, 70.1, ny), np.linspace(20.5, 31.6, nx), gf,
+        rng.uniform(59.6, 70.1, npoints), rng.uniform(20.5, 31.6, npoints),
+        sim_ep, mesh, chunk_t=t_chunk)
+    geng = production._Engine(model2, gexp, default_point_params(npoints),
+                              Calendar.from_epochs(sim_ep), state, mesh=mesh,
+                              chunk_t=t_chunk)
+    assert geng.fused_generic
+    gfn = geng.chunk_fn(t_chunk, False)
+    rates["grid_chunk"] = rate(timed(
+        lambda: gfn(geng.tmp0, geng.scal0, np.int32(t_chunk), geng.data),
+        (), n_chunks))
 
-    # ---- fused-generic GRID production chunk: the reference's operational
-    # forcing source (NWP grid), device-extracted + interpolated + prepped
-    # in the kernel's tile-major layout (round 5)
-    grid_rate = None
-    if backend == "tpu" and npoints % ps.TILE_P == 0:
-        try:
-            from roadsurf_tpu import production
-            from roadsurf_tpu.parallel.sharding import make_mesh
-
-            T2 = 8 * t_chunk + 1
-            t0e = 1575158400
-            sim_ep = t0e + (30.0 * np.arange(T2)).astype(np.int64)
-            gt = t0e + 3600 * np.arange(1 + int(T2 * 30.0 // 3600) + 1,
-                                        dtype=np.int64)
-            rng = np.random.default_rng(11)
-            ny, nx = 300, 400
-            gla = np.linspace(59.6, 70.1, ny)
-            glo = np.linspace(20.5, 31.6, nx)
-            R = len(gt)
-            gf = {n: rng.normal(0.0 if n in ("prec", "sw") else -3.0, 2.0,
-                                (R, ny, nx))
-                  for n in ("tair", "tdew", "rhz", "vz", "prec", "sw",
-                            "lw")}
-            gf["rhz"] = np.abs(gf["rhz"]) + 60.0
-            gf["vz"] = np.abs(gf["vz"]) + 1.0
-            gf["prec"] = np.abs(gf["prec"])
-            gf["sw"] = np.abs(gf["sw"])
-            gf["lw"] = 280.0 + gf["lw"]
-            plat = rng.uniform(59.6, 70.1, npoints)
-            plon = rng.uniform(20.5, 31.6, npoints)
-            mesh = make_mesh()
-            gexp = production.GridExpander(gt, gla, glo, gf, plat, plon,
-                                           sim_ep, mesh, chunk_t=t_chunk)
-            cal3 = Calendar.from_epochs(sim_ep)
-            settings3 = ModelSettings(sim_len=T2, dt=30.0,
-                                      use_relaxation=False)
-            model3 = Model(settings3)
-            geng = production._Engine(model3, gexp,
-                                      default_point_params(npoints), cal3,
-                                      state, mesh=mesh, chunk_t=t_chunk)
-            assert geng.fused_generic
-            gfn = geng.chunk_fn(t_chunk, False)
-            tmp, scal = geng.tmp0, geng.scal0
-            tmp, scal, _ = gfn(tmp, scal, np.int32(0), geng.data)
-            jax.block_until_ready(scal)
-            t0 = time.perf_counter()
-            for k in range(n_chunks):
-                tmp, scal, _ = gfn(tmp, scal, np.int32((k % 8) * t_chunk),
-                                   geng.data)
-            jax.block_until_ready(scal)
-            grid_rate = npoints * t_chunk * n_chunks / (
-                time.perf_counter() - t0)
-        except Exception as e:  # keep the headline alive on rig quirks
-            print(f"grid-chunk stage skipped: {type(e).__name__}: {e}",
-                  file=sys.stderr)
-
-    # headline = best sustained rate across engines; the fused production
-    # chunk legitimately exceeds the point-major kernel-only stage because
-    # its tile-major slim forcing layout also speeds up the kernel's DMA
-    rate = max(scan_rate, pallas_rate or 0.0, fused_rate or 0.0)
     print(json.dumps({
-        "metric": "point_timesteps_per_s_per_chip",
-        "value": round(rate, 1),
+        "metric": "point_timesteps_per_s",
         "unit": "point-steps/s",
-        "vs_baseline": round(rate / BASELINE_POINT_STEPS_PER_S, 3),
+        "rates": {k: round(v, 1) for k, v in rates.items()},
         "detail": {"npoints": npoints, "t_chunk": t_chunk,
-                   "n_chunks": n_chunks, "backend": backend,
-                   "dtype": "float32",
-                   "scan_rate": round(scan_rate, 1),
-                   "pallas_rate": (round(pallas_rate, 1)
-                                   if pallas_rate else None),
-                   "fused_production_chunk_rate": (
-                       round(fused_rate, 1) if fused_rate else None),
-                   "grid_production_chunk_rate": (
-                       round(grid_rate, 1) if grid_rate else None)},
+                   "n_chunks": n_chunks, "dtype": "float32",
+                   "card": card, "device": device_info()},
     }))
 
 

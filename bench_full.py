@@ -1,12 +1,12 @@
-"""Full-horizon production benchmark: 1M points x 8,881 steps (the reference's
-48 h analysis + 26 h forecast at 30 s) end to end on one chip.
+"""Full-horizon kernel benchmark: 1M points x 8,881 steps (the reference's
+48 h analysis + 26 h forecast at 30 s) end to end on one GPU.
 
 Forcing is generated on device per time chunk (a production deployment
 streams chunks from its data plane; generation cost here is measured and
 reported separately).  State is carried across chunks in packed kernel
 layout -- no host round trips.
 
-Prints one JSON line like bench.py but for the complete workload.
+Needs a GPU: a run that finds none fails.  Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -18,16 +18,12 @@ import time
 import numpy as np
 
 
-def _baseline():
-    """Measured CPU-node denominator -- single source of truth in bench.py."""
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from bench import BASELINE_POINT_STEPS_PER_S
-    return BASELINE_POINT_STEPS_PER_S
-
-
 def main():
     import jax
     import jax.numpy as jnp
+
+    from bench import gpu_name_and_power
+    from roadsurf_tpu import use_compile_cache
 
     from roadsurf_tpu.config import ModelSettings
     from roadsurf_tpu.io.synthetic import synthetic_raw
@@ -35,6 +31,11 @@ def main():
     from roadsurf_tpu.ops import pallas_step as ps
     from roadsurf_tpu.state import default_point_params
 
+    use_compile_cache()
+    if jax.default_backend() != "gpu":
+        sys.exit(f"bench_full.py measures the GPU; the backend is "
+                 f"{jax.default_backend()!r}")
+    card = gpu_name_and_power()
     P = int(os.environ.get("BENCH_POINTS", 1 << 20))
     T_TOTAL = int(os.environ.get("BENCH_STEPS", 8881))
     CHUNK = int(os.environ.get("BENCH_TCHUNK", 64))
@@ -78,7 +79,7 @@ def main():
 
     pal = jax.jit(lambda t, s, f: ps.pallas_scan(
         t, s, f, model.cfg, model.params, model.grid,
-        out_stride=OUT_STRIDE, chunk_t=min(8, CHUNK)))
+        out_stride=OUT_STRIDE))
 
     # One jit per chunk: forcing generation fuses with the kernel launch
     # (XLA eliminates the intermediate tile/modulate/stack materializations
@@ -87,9 +88,8 @@ def main():
     def combo(t, s, k):
         return ps.pallas_scan(
             t, s, build_chunk.__wrapped__(k), model.cfg, model.params,
-            model.grid, out_stride=OUT_STRIDE, chunk_t=min(8, CHUNK))
+            model.grid, out_stride=OUT_STRIDE)
 
-    import sys
     log = lambda m: (print(m, file=sys.stderr), sys.stderr.flush())
     log("building state...")
     t0 = time.perf_counter()
@@ -121,10 +121,9 @@ def main():
 
     outs_host = []
     t0 = time.perf_counter()
-    # Pipelined dispatch: the per-call round trip to the (remote) chip is
-    # comparable to the compute itself, so blocking every chunk serializes
-    # RTT + gen + kernel.  Keep two chunks in flight (bounded HBM: 2 forcing
-    # chunks x ~4 GB) and block on chunk k-2 while k dispatches.
+    # Pipelined dispatch: blocking every chunk would serialize host dispatch,
+    # forcing generation and the kernel.  Keep two chunks in flight (2
+    # forcing chunks x ~4 GB) and block on chunk k-2 while k dispatches.
     inflight = []
     for k in range(nchunks):
         tmp, scal, out = combo(tmp, scal, jnp.float32(k))
@@ -145,16 +144,15 @@ def main():
     rate = P * T / wall
     full_forecast_s = wall
     print(json.dumps({
-        "metric": "full_forecast_point_timesteps_per_s_per_chip",
+        "metric": "full_forecast_point_timesteps_per_s",
         "value": round(rate, 1),
         "unit": "point-steps/s",
-        "vs_baseline": round(rate / _baseline(), 3),
         "detail": {
             "npoints": P, "steps": T, "chunk_t": CHUNK,
             "out_stride": OUT_STRIDE,
             "wall_s_full_forecast": round(full_forecast_s, 2),
             "forcing_gen_s_per_chunk": round(gen_s, 4),
-            "backend": jax.default_backend(), "dtype": "float32"},
+            "card": card, "dtype": "float32"},
     }))
 
 

@@ -6,13 +6,9 @@ runs it through the real CLI runner with the streamed sharded Pallas engine
 (`--engine pallas`): JSON data plane -> nearest-station index -> on-device
 chunked expansion -> fused whole-scan kernel -> gridded npz output.
 
-This is the run VERDICT round 1 asked for: the flagship kernel fed from the
-file-backed data plane at 1M points, through the production driver, with the
-sustained engine rate compared against bench.py's synthetic-forcing kernel
-rate.
-
-Prints one JSON line (driver contract).  Env knobs: BENCH_PROD_DIR (dataset
-cache dir), BENCH_PROD_NY/NX/STATIONS, BENCH_PROD_CHUNK_T.
+Needs a GPU: a run that finds none fails.  Prints one JSON line.  Env knobs:
+BENCH_PROD_DIR (dataset cache dir), BENCH_PROD_NY/NX/STATIONS,
+BENCH_PROD_CHUNK_T.
 """
 from __future__ import annotations
 
@@ -22,14 +18,17 @@ import sys
 import time
 
 
-def _baseline():
-    """Measured CPU-node denominator -- single source of truth in bench.py."""
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from bench import BASELINE_POINT_STEPS_PER_S
-    return BASELINE_POINT_STEPS_PER_S
-
-
 def main():
+    import jax
+
+    from bench import gpu_name_and_power
+    from roadsurf_tpu import use_compile_cache
+
+    use_compile_cache()
+    if jax.default_backend() != "gpu":
+        sys.exit(f"bench_production.py measures the GPU; the backend is "
+                 f"{jax.default_backend()!r}")
+    card = gpu_name_and_power()
     grid_mode = os.environ.get("BENCH_PROD_MODE", "stations") == "grid"
     outdir = os.environ.get(
         "BENCH_PROD_DIR",
@@ -65,21 +64,19 @@ def main():
                chunk_t=chunk_t, verbose=True, metrics=metrics)
     total = time.perf_counter() - t0
 
-    import jax
     rate = float(metrics.counters.get("point_steps_per_s", 0.0))
     npoints = int(metrics.counters.get("points", ny * nx))
     nsteps = int(metrics.counters.get("steps", 0))
     print(json.dumps({
-        "metric": "production_cli_point_timesteps_per_s_per_chip",
+        "metric": "production_cli_point_timesteps_per_s",
         "value": round(rate, 1),
         "unit": "point-steps/s",
-        "vs_baseline": round(rate / _baseline(), 3),
         "detail": {
             "npoints": npoints, "steps": nsteps, "chunk_t": chunk_t,
             "stations": stations,
             "wall_s_total_cli": round(total, 2),
             "phases_s": {k: round(v, 2) for k, v in metrics.phases.items()},
-            "backend": jax.default_backend(), "dtype": "float32",
+            "card": card, "dtype": "float32",
             "forcing": ("file-backed NWP grid npz, on-device time interp"
                         if grid_mode else
                         "file-backed station JSON, on-device expansion")},

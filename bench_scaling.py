@@ -5,17 +5,18 @@ points.  Columns are independent, so the production kernel runs under
 ``shard_map`` with zero hot-loop collectives (parallel/sharding.py
 ``pallas_scan_sharded``); this harness measures throughput on 1, 2, 4, ...
 up to every visible device, keeping points-per-device constant (weak
-scaling -- the production regime: more chips -> more road network).
+scaling -- the production regime: more cards -> more road network).
 
-On this image only one real TPU chip is visible, so the sweep degenerates to
-the single-chip measurement; on a pod slice the same script produces the full
-curve.  Prints one JSON line per device count plus a final summary line with
-the parallel efficiency of the largest mesh vs one device.
+Needs GPUs: a run that finds none fails.  With one visible card the sweep
+degenerates to the single-card measurement.  Prints one JSON line per device
+count plus a final summary line with the parallel efficiency of the largest
+mesh vs one device.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -26,6 +27,8 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
+    from bench import gpu_name_and_power
+    from roadsurf_tpu import use_compile_cache
     from roadsurf_tpu.config import ModelSettings
     from roadsurf_tpu.io.synthetic import synthetic_raw
     from roadsurf_tpu.model import Model
@@ -34,12 +37,15 @@ def main():
                                                 pallas_scan_sharded)
     from roadsurf_tpu.state import default_point_params
 
+    use_compile_cache()
     backend = jax.default_backend()
-    on_tpu = backend == "tpu"
-    per_device = int(os.environ.get("BENCH_POINTS_PER_DEVICE",
-                                    (1 << 20) if on_tpu else 1024))
-    t_chunk = int(os.environ.get("BENCH_TCHUNK", 64 if on_tpu else 16))
-    n_chunks = int(os.environ.get("BENCH_CHUNKS", 4 if on_tpu else 1))
+    if backend != "gpu":
+        sys.exit(f"bench_scaling.py measures GPUs; the backend is "
+                 f"{backend!r}")
+    print(f"card: {gpu_name_and_power()}")
+    per_device = int(os.environ.get("BENCH_POINTS_PER_DEVICE", 1 << 20))
+    t_chunk = int(os.environ.get("BENCH_TCHUNK", 64))
+    n_chunks = int(os.environ.get("BENCH_CHUNKS", 4))
     devices = jax.devices()
 
     settings = ModelSettings(sim_len=t_chunk, dt=30.0)
@@ -47,9 +53,7 @@ def main():
 
     # One small seed block, widened PER DEVICE under shard_map: each device
     # tiles its own [.., per_device] shard from the replicated seed, so no
-    # global forcing tensor is ever materialized on one chip (at production
-    # sizes the unsharded [T, NCH, P_total] tensor would exceed single-chip
-    # HBM on any real slice).
+    # global forcing tensor is ever materialized on one card.
     small = min(per_device, 4096)
     assert per_device % small == 0, (per_device, small)
     raw, cal = synthetic_raw(small, t_chunk, dt=30.0, seed=0,
@@ -83,8 +87,7 @@ def main():
 
         run = jax.jit(lambda t, s, f: pallas_scan_sharded(
             t, s, f, model.cfg, model.params, model.grid, mesh,
-            out_stride=t_chunk, chunk_t=min(8, t_chunk),
-            interpret=not on_tpu))
+            out_stride=t_chunk))
         r = run(tmp0, scal0, forc)
         jax.block_until_ready(r)
         t0 = time.perf_counter()

@@ -1,4 +1,4 @@
-// roadsurf_native: C++ data-plane kernels for the TPU road weather framework.
+// roadsurf_native: C++ data-plane kernels for the road weather framework.
 //
 // The reference implements its data plane in C++ (examples/example1/src/
 // JsonSource.cpp interpolation loops, examples/example2/src/AsciiSource.cpp

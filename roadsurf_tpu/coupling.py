@@ -422,7 +422,7 @@ def _last_values(st, cv, in_coupling, prep, pts, cfg, grid, p, T, n_out,
 #
 # The per-point-PC engine above replays the reference's control flow exactly,
 # but every step gathers 8 forcing channels at per-point row indices from
-# [T, P] HBM arrays -- a gather-bound pattern on TPU.  The segmented engine
+# [T, P] device arrays -- a gather-bound pattern.  The segmented engine
 # re-organizes the SAME per-point step sequences into three phases so the hot
 # path is contiguous row slices:
 #
@@ -529,7 +529,7 @@ def run_window_passes(state: State, provider, valid_win, ws: int, we_b: int,
 
     # Pass modes carried as a TRACED scalar so the whole phase is ONE
     # lax.while_loop with ONE instance of the step graph (three structural
-    # variants would triple the HLO and overflow remote-compile limits).
+    # variants would triple the HLO and its compile time).
     M_FIRST, M_RERUN, M_TAIL, M_DONE = 0, 1, 2, 3
 
     def row_fn(carry, xs):

@@ -105,7 +105,7 @@ def relax_anchors(raw: RawForcing, pts: PointParams):
     returns ([P] tair, vz, rhz).
 
     numpy in -> numpy out (the ingest data plane must stay device-free so
-    it never blocks on a remote accelerator claim); jax in -> jnp out."""
+    it never goes through the device); jax in -> jnp out."""
     import jax
     if not isinstance(raw.tair, jax.Array):
         tair = np.asarray(raw.tair)

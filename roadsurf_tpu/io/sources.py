@@ -106,7 +106,7 @@ def read_json_tolerant(path: str):
 def _complete_tdew_rh(series) -> None:
     """Tdew <-> RH completion (JsonSource.cpp:290-296), batched: ONE device
     call over the concatenation of every station's rows (a per-station call
-    costs a dispatch each -- ruinous through a remote backend)."""
+    costs a device dispatch each)."""
     lens = [len(t) for t, _ in series]
     total = int(np.sum(lens))
     if total == 0:

@@ -1,35 +1,42 @@
-"""Fused Pallas TPU kernel: the entire forecast scan in one kernel launch.
+"""Fused whole-scan kernel: the forecast time loop of a block of road points
+in one Pallas program (Triton route).
 
-The XLA-scan path round-trips ~120 B/point of state through HBM every
-timestep and splits each step into several kernels (the boundary-layer
-``while_loop`` forces kernel boundaries, and its carry re-crosses HBM every
-iteration).  This kernel instead runs the whole time loop on-chip:
+The plain XLA path (``model.scan_steps``: step.py under ``lax.scan``) moves
+~120 B of prognostic state per point through device memory every step, and
+its boundary-layer ``lax.while_loop`` splits each step into several kernels
+with a device-to-host predicate read per iteration.  This kernel instead:
 
- * grid = (point tiles,); each program owns TILE_P points for the full run;
- * all prognostic state lives in VMEM scratch for the entire scan
-   (zero HBM state traffic between steps);
- * forcing is streamed HBM->VMEM in double-buffered time chunks of
-   CHUNK_T steps, overlapping DMA with compute;
- * each output event (every out_stride steps -- ~30-60 min cadence in
-   production) is DMA'd straight to HBM, so the output cadence is
-   independent of the forcing chunk size.
+ * grid = (tile, block of points in the tile); each program owns ``block``
+   consecutive points for the whole call;
+ * carries every state row -- the L+2 temperature-profile rows and the 13
+   scalar rows -- as its own [block] vector in the time loop's carry, so the
+   state stays in registers from the first step to the last;
+ * loads each step's forcing rows straight from device memory, ``block``
+   contiguous floats per channel (the only per-step traffic: 44 B per
+   point-step in the slim layout);
+ * stores output rows only at the output cadence, under ``pl.when``.
 
-Layouts are lane-major over points: per-point scalar state is row-packed into
-one [NROWS, TILE_P] array (rows indexed by the R_* constants); the
-temperature profile is [LPAD, TILE_P].  Forcing comes in three HBM layouts:
-point-major [T, NCH, P] (the generic/gather paths), tile-major
-[n_tiles, T, NCH, subl, LANE] (the fused MXU expansion -- each tile's chunk
-DMA is fully contiguous), and SLIM tile-major [n_tiles, T, NCH_SLIM, ...]
-where only the genuinely (station, step)-varying channels ride HBM (TRF via
-SMEM, radiation cofs computed in kernel from aux rows, coupling obs as an
-aux row).
+Forcing comes in three layouts that differ only in strides: point-major
+[T, NCH, P] (the generic/gather paths), tile-major [n_tiles, T, NCH, subl,
+LANE] (the fused station->point expansion) and SLIM tile-major [n_tiles, T,
+NCH_SLIM, subl, LANE], where only the genuinely (station, step)-varying
+channels ride device memory: TRF is time-only (one scalar load per step), the
+radiation cofs are computed in kernel from aux rows when coupled, and the
+coupling obs is an aux row.  ``pallas_scan`` views all three as
+[n_tiles, T, nch, tile_p] (point-major is one tile of P points).
 
 The physics replicates the same branch-free re-derivation as
 roadsurf_tpu.physics / step.py (reference citations there); the
-boundary-layer fixed point uses masked-freeze iterations, mathematically
-identical to the scan path's early-exit while_loop.  Parity vs the scan path
-is tested in tests/test_pallas_step.py; the fused/slim layouts are bitwise
-vs the gather path in tests/test_production_fused.py.
+boundary-layer fixed point uses masked-freeze iterations, identical to the
+scan path's early-exit while_loop.  Every expression keeps the reference's
+operand order, and where XLA's algebraic simplifier rewrites the reference
+(a divide by a constant into a product by its reciprocal, a chain of
+constant factors into one, ``(a / b) / c`` into ``a / (b * c)``) the kernel
+writes the rewritten form itself, because Triton compiles the source as
+written: the compiled kernel then equals the XLA scan on the GPU bit for
+bit (chip_smoke.py phase c).  Parity vs the scan path is tested in
+tests/test_pallas_step.py; the fused/slim layouts are bitwise vs the gather
+path in tests/test_production_fused.py.
 
 The coupled production driver streams phases A/C through this kernel (the
 in-window phase B runs the iteration-major engine in coupling.py); the
@@ -37,24 +44,22 @@ post-coupling radiation-coefficient decay runs in kernel under have_cofs.
 """
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..config import PhysicsParams
 from ..grid import LayerGrid
+from ..physics.boundary_layer import CONV_LIM, MIN_ITER
 from ..step import StepConfig
 
-# ---- row indices into the packed scalar state [NROWS, TILE_P] -------------
+# ---- row indices into the packed scalar state [NROWS, P] -----------------
 R_TSURF, R_WAT, R_SNOW, R_ICE, R_ICE2, R_DEP = 0, 1, 2, 3, 4, 5
 R_Q2MELT, R_T4MELT, R_EVAP, R_BLCOND, R_ALBEDO = 6, 7, 8, 9, 10
 R_VERYCOLD, R_FAILED = 11, 12          # 0.0 / 1.0 flags
-NROWS = 16
+NROWS = 13
 
 # ---- forcing channel indices (axis 1 of [T, NCH, P]) ----------------------
 # C_EAIR and C_AIRVCAP are pure functions of the raw forcing (tair, rhz),
@@ -64,32 +69,54 @@ C_TAIR, C_VZ, C_EAIR, C_RAIN, C_SNOW, C_SW, C_LW = 0, 1, 2, 3, 4, 5, 6
 C_TSURF_OBS, C_VALID, C_TRF, C_SWCOF, C_LWCOF, C_INCPL, C_CPLOBS = \
     7, 8, 9, 10, 11, 12, 13
 C_AIRVCAP = 14
-NCH = 16
+NCH = 15
 
 # SLIM forcing layout (the fused tile-major path): only the channels that
 # genuinely vary per (station, step) ride the [n_tiles, T, nch, subl, LANE]
-# HBM tensor -- TRF is time-only (SMEM side channel), SWCOF/LWCOF are 1
-# outside coupling (computed in kernel from aux rows when coupled), CPLOBS
-# is a per-point constant (aux row 3).  Cuts the dominant forcing HBM
-# traffic and the expansion-matmul M by 5/16.
+# tensor -- TRF is time-only (a [T] side channel), SWCOF/LWCOF are 1 outside
+# coupling (computed in kernel from aux rows when coupled), CPLOBS is a
+# per-point constant (aux row 3).
 SLIM_CHANNELS = (C_TAIR, C_VZ, C_EAIR, C_RAIN, C_SNOW, C_SW, C_LW,
                  C_TSURF_OBS, C_VALID, C_INCPL, C_AIRVCAP)
 NCH_SLIM = len(SLIM_CHANNELS)
 _SLIM_POS = {c: i for i, c in enumerate(SLIM_CHANNELS)}
 
-N_OUT_FIELDS = 8  # tsurf, wat, snow, ice, ice2, dep, (2 pad)
+#: output rows, in order: tsurf, wat, snow, ice, ice2, dep
+OUT_ROWS = (R_TSURF, R_WAT, R_SNOW, R_ICE, R_ICE2, R_DEP)
+N_OUT_FIELDS = len(OUT_ROWS)
 
-# point-tile geometry: each kernel program owns SUBL*LANE points laid out as
-# SUBL/8 full (8, 128) f32 vregs per scalar row -- full VPU utilization (a
-# flat [1024] row would occupy 8 vregs at 1/8 sublane usage).  SUBL=64 gives
-# every vector op 8 independent vregs, hiding VPU op latency in the serial
-# boundary-layer dependency chain: measured on v5e, SUBL 8 -> 16 -> 32 -> 64
-# is 320 -> 525 -> 755 -> 856 M point-steps/s (bitwise-identical results);
-# SUBL 96 exceeds VMEM even at chunk_t=4 and 128 at chunk_t=2
-# (tools/bench_tile.py sweep), so 64/8 is the feasible optimum.
-SUBL = 64
+# Point geometry.  LANE is the point quantum: every per-device point count
+# is a multiple of it, so the kernel block (a power of two dividing LANE)
+# always divides it.  The fused station->point expansion works on tiles of
+# TILE_P = SUBL * LANE points laid out [subl, LANE] (one one-hot block per
+# tile, production.StationExpander); the kernel's blocks subdivide a tile.
 LANE = 128
+SUBL = 64
 TILE_P = SUBL * LANE
+
+# Points per program, one point per thread (BLOCK // 32 warps): the state
+# carry is ~30 live [BLOCK] vectors, so one point per thread keeps it in
+# registers with room for the step's temporaries.  One warp (32 points)
+# measured fastest of 32/64/128/256 on an H100 (PERF.md): a program leaves
+# the boundary-layer loop as soon as its own 32 points have converged.
+# bench.py sweeps other values by rebinding this constant.
+BLOCK = 32
+
+
+def _recip(c):
+    """XLA's algebraic simplifier turns ``x / c`` into ``x * (1 / c)``, the
+    reciprocal rounded to float32.  The kernel writes that form itself
+    wherever the reference divides by a constant."""
+    return np.float32(1) / np.float32(c)
+
+
+def _fold(*factors):
+    """A chain of constant factors folded as XLA folds ``(x * a) * b`` into
+    ``x * (a * b)``: float32, rounded after each product."""
+    out = np.float32(factors[0])
+    for f in factors[1:]:
+        out = np.float32(out * np.float32(f))
+    return out
 
 
 def _esat(t):
@@ -106,26 +133,24 @@ def _bl_fixed_point(blcond, tsurf, tair, vz, air_vcap, p: PhysicsParams,
     """Masked-freeze boundary-layer iteration (BoundaryLayer.f90:60-101):
     identical results to the early-exit loop (frozen lanes stop changing).
 
-    Division strength reduction: the loop body carries 1/ustar instead of
-    ustar (ustar_inv = (logUstar+PsiM)/(k*vz), with 1/(k*vz) hoisted out of
-    the loop), turning the reference's three per-iteration divides (ustar,
-    BLC, Stab) into one -- divides are multi-pass on the VPU and this chain
-    is the serial critical path of the whole kernel."""
+    Every expression has the operand order of
+    physics.boundary_layer.bl_conductance, so the kernel rounds as the XLA
+    reference does.  No point can converge before iteration MIN_ITER, so
+    those iterations run without a check; after them the program leaves the
+    loop as soon as every point of its block has converged."""
     tak = tair + 273.15
     dt_ts = tsurf - tair
-    inv_kvz = 1.0 / (p.vk_const * vz)            # hoisted (vz >= calm floor)
-    inv_avt = 1.0 / (air_vcap * tak)             # hoisted
+    k_vz = p.vk_const * vz                       # loop invariants
+    k_vcap = air_vcap * p.vk_const
+    vcap_tak = air_vcap * tak
     stab_c = -p.vk_const * p.zref_t * p.grav
 
-    # NOTE: the done-mask is carried as float32 (0/1) -- Mosaic cannot
-    # legalize i1 vectors in scf.for carries.
     def body(j, carry):
-        bl, psim, psih, done_f = carry
-        done = done_f > 0.5
-        ustar_inv = (p.log_ustar + psim) * inv_kvz
-        bl_new = air_vcap * p.vk_const / ((p.log_cond + psih) * ustar_inv)
-        stab = (stab_c * bl_new * dt_ts * inv_avt
-                * ustar_inv * ustar_inv * ustar_inv)
+        bl, psim, psih, done = carry
+        ustar = k_vz / (p.log_ustar + psim)
+        bl_new = k_vcap * ustar / (p.log_cond + psih)
+        stab = (stab_c * bl_new * dt_ts
+                / (vcap_tak * ustar * ustar * ustar))
         stab = jnp.minimum(stab, 1.0)
         psih_s = 4.7 * stab
         psih_u = -2.0 * jnp.log(
@@ -133,48 +158,32 @@ def _bl_fixed_point(blcond, tsurf, tair, vz, air_vcap, p: PhysicsParams,
         stable = stab > 0.0
         psih_n = jnp.where(stable, psih_s, psih_u)
         psim_n = jnp.where(stable, psih_n, 0.6 * psih_n)
-        newly = (jnp.abs(bl_new - bl) < 1e-3) & (j + 1 >= 5)
+        newly = (jnp.abs(bl_new - bl) < CONV_LIM) & (j + 1 >= MIN_ITER)
         bl = jnp.where(done, bl, bl_new)
         psim = jnp.where(done, psim, psim_n)
         psih = jnp.where(done, psih, psih_n)
-        return bl, psim, psih, jnp.maximum(done_f, newly.astype(jnp.float32))
+        return bl, psim, psih, done | newly
 
-    done0 = jnp.zeros_like(blcond)
-    carry0 = (blcond, jnp.zeros_like(blcond), jnp.zeros_like(blcond), done0)
-    # Blocked early exit: run BLOCK masked iterations at a time, stop when
-    # every lane has converged.  Checking every iteration was measured SLOWER
-    # on v5e (per-iteration min-reduction + scalar branch outweighed the
-    # skipped work); amortizing the check over a block wins because typical
-    # convergence is ~5-15 of the 40 budgeted iterations
-    # (BoundaryLayer.f90:92-96).  Frozen lanes stop changing, so the result
-    # is identical to the fixed n_iter loop.
-    block = 5
-    nblocks = n_iter // block
-    assert nblocks * block == n_iter
+    zero = jnp.zeros_like(blcond)
+    carry = (blcond, zero, zero, zero > 1.0)
+    for j in range(min(MIN_ITER, n_iter)):
+        carry = body(j, carry)
 
     def w_cond(c):
-        blk = c[0]
-        done_f = c[4]
-        return (blk < nblocks) & (jnp.min(done_f) < 0.5)
+        return (c[0] < n_iter) & (jnp.min(c[4].astype(jnp.int32)) == 0)
 
     def w_body(c):
-        blk = c[0]
+        return (c[0] + 1,) + body(c[0], c[1:])
 
-        def inner(jl, cc):
-            return body(blk * block + jl, cc)
-
-        bl, psim, psih, done_f = jax.lax.fori_loop(
-            0, block, inner, c[1:], unroll=True)
-        return (blk + 1, bl, psim, psih, done_f)
-
-    carry = jax.lax.while_loop(w_cond, w_body, (0,) + carry0)
-    bl, psim, psih = carry[1], carry[2], carry[3]
-    return bl, psim, psih, inv_kvz
+    carry = jax.lax.while_loop(w_cond, w_body,
+                               (np.int32(min(MIN_ITER, n_iter)),) + carry)
+    return carry[1], carry[2], carry[3]
 
 
 def _stencil(tmp, bl, rnet, le, trf, dt, p, dyc, cond_dz, wcont, nlayers):
     """CalcHCapHCond + calcProfile + calcHStor, unrolled over layers
-    (BalanceModel.f90:90-129, :189-251, :311-322); tmp: [LPAD, TILE_P]."""
+    (BalanceModel.f90:90-129, :189-251, :311-322); tmp: tuple of L+2
+    profile rows."""
     sens = bl * (tmp[0] - tmp[1])
     g_prev = rnet - le + trf + sens
     hs1 = None
@@ -193,16 +202,13 @@ def _stencil(tmp, bl, rnet, le, trf, dt, p, dyc, cond_dz, wcont, nlayers):
         else:
             vsh = (1.0 - p.poro2) * p.vsh2 + wcont[j - 1] * chwt
         if j == 1:
-            hs1 = vsh * dyc[0] / dt
+            hs1 = vsh * dyc[0] * _recip(dt)
         cap_dz = -1.0 / (dyc[j - 1] * vsh)
         gflux = cond_dz[j - 1] * (tmp[j + 1] - tmp[j])
         updates.append(tmp[j] + dt * cap_dz * (gflux - g_prev))
         g_prev = gflux
     t1a = (tmp[1] + 3.0 * tmp[2]) / 4.0
-    lpad = tmp.shape[0]
-    rows = ([tmp[0]] + updates
-            + [tmp[j] for j in range(nlayers + 1, lpad)])
-    new_tmp = jnp.stack(rows)
+    new_tmp = (tmp[0],) + tuple(updates) + tuple(tmp[nlayers + 1:])
     tna = (new_tmp[1] + 3.0 * new_tmp[2]) / 4.0
     hstor = hs1 * (tna - t1a)
     return new_tmp, hs1, hstor
@@ -231,10 +237,8 @@ def _melting(tmp_new, tsurf, snow, ice, ice2, q2, t4, hstor, hs1,
     all_used = q2 >= qavail
     t1p = jnp.where(all_used, t4 + 0.01, t4 + (qavail - q2) / hs1)
     t2p = t4 + 0.01
-    tmp_out = jnp.stack(
-        [tmp_new[0], jnp.where(pin, t1p, tmp_new[1]),
-         jnp.where(pin, t2p, tmp_new[2])]
-        + [tmp_new[j] for j in range(3, tmp_new.shape[0])])
+    tmp_out = ((tmp_new[0], jnp.where(pin, t1p, tmp_new[1]),
+                jnp.where(pin, t2p, tmp_new[2])) + tuple(tmp_new[3:]))
     q2_out = jnp.where(has_frozen & cold, 0.0, q2_out)
     q2_out = jnp.where(has_frozen & hot, jnp.minimum(q2_out, qavail), q2_out)
     q2_out = jnp.where(pin & all_used, qavail, q2_out)
@@ -248,13 +252,16 @@ def _road_cond(wat, snow, ice, ice2, dep, tsurf, evap, q2, t4, vcold,
     vcold = vcold & ~(vcold & (tsurf > p.t_lim_cold_h))
     vcold = vcold | ((~vcold) & (tsurf < p.t_lim_cold_l))
 
-    snow_tran = jnp.maximum(0.45 * snow, 0.01)
-    snow_tran = jnp.where(snow < 0.2, snow_tran * 3.0, snow_tran) * tph
+    # constant factors folded as XLA folds them in storage.py's expressions
+    snow_tran = jnp.maximum((0.2 + 0.25) * snow, 0.01)
+    snow_tran = jnp.where(snow < 0.2, snow_tran * 3.0, snow_tran)
+    snow_to_ice = snow_tran * _fold(0.25 / (0.2 + 0.25), tph)
+    snow_tran = snow_tran * tph
     ice_wear = jnp.maximum(1.1 * 2.0 * 0.145 * ice, 0.01) * tph
-    ice_wear2 = jnp.maximum(1.1 * 2.0 * 4.0 * 0.290 * ice2, 0.01) * tph
-    dep_wear = jnp.maximum(0.5 * 2.0 * 4.0 * 0.290 * dep, 0.01) * tph
-    wat_wear = 10.0 * jnp.maximum(0.145 * wat, 0.06) * tph
-    s2i = 0.25 / 0.45
+    ice_wear2 = jnp.maximum(1.1 * 2.0 * (4.0 * 0.290) * ice2, 0.01) * tph
+    dep_wear = jnp.maximum(0.5 * 2.0 * (4.0 * 0.290) * dep, 0.01) * tph
+    wat_wear = jnp.maximum(0.145 * wat, 0.06) * _fold(10.0, tph)
+    heat = p.wat_m_heat * p.wat_dens
 
     bare = (snow <= 0.0) & (ice <= 0.0) & (dep <= 0.0) & (tsurf > p.t_lim_dew)
     loss = jnp.where(wat > p.max_por_mms, evap, p.por_eva_f * evap)
@@ -276,13 +283,13 @@ def _road_cond(wat, snow, ice, ice2, dep, tsurf, evap, q2, t4, vcold,
     has_snow = snow > 0.0
     melt_f = has_snow & bool(cfg.force_snow_melting)
     melts = has_snow & (~melt_f) & (q2 > 0.0) & (tsurf >= p.t_lim_melt_snow)
-    mm = 1000.0 * (q2 * dt) / (p.wat_m_heat * p.wat_dens)
+    mm = q2 * _fold(_fold(1000.0, dt), _recip(heat))
     wat = jnp.where(melt_f, wat + snow, jnp.where(melts, wat + mm, wat))
     snow = jnp.where(melt_f, 0.0, jnp.where(melts, snow - mm, snow))
     wearing = snow > 0.0
     snow = jnp.where(wearing, snow - snow_tran, snow)
-    ice = jnp.where(wearing, ice + s2i * snow_tran, ice)
-    ice2 = jnp.where(wearing, ice2 + s2i * snow_tran, ice2)
+    ice = jnp.where(wearing, ice + snow_to_ice, ice)
+    ice2 = jnp.where(wearing, ice2 + snow_to_ice, ice2)
     wet_block = (snow > 0.0) & snow_wet
     melting_wet = wet_block & (wsr > p.wet_snow_melt_r)
     wat = jnp.where(melting_wet, wat + snow, wat)
@@ -329,256 +336,206 @@ def _road_cond(wat, snow, ice, ice2, dep, tsurf, evap, q2, t4, vcold,
     wat = jnp.minimum(wat, p.max_wat_mms)
 
     q2n = jnp.zeros_like(wat)
+    melt_heat = _fold(_fold(heat, _recip(1000.0)), _recip(dt))
     snowy = snow > 0.0
-    q2n = jnp.where(snowy, p.wat_m_heat * p.wat_dens * (snow / 1000.0) / dt,
-                    q2n)
+    q2n = jnp.where(snowy, snow * melt_heat, q2n)
     t4n = jnp.where(snowy, p.t_lim_melt_snow, t4)
     icy = (~snowy) & (ice > 0.0)
-    q2n = jnp.where(icy, p.wat_m_heat * p.wat_dens * (ice / 1000.0) / dt, q2n)
+    q2n = jnp.where(icy, ice * melt_heat, q2n)
     t4n = jnp.where(icy, p.t_lim_melt_ice, t4n)
     q2n = jnp.maximum(q2n, 0.0)
 
     ice_sum = jnp.maximum(0.5 * (ice + ice2) + dep, 0.0)
     snowy_a = (snow > 0.01) & (snow > ice)
     icy_a = (ice > 0.01) | (dep > 0.01)
-    icy_alb = jnp.where(ice_sum < 1.5,
-                        p.alb_dry + (ice_sum / 1.5) * (p.alb_snow - p.alb_dry),
-                        p.alb_snow)
+    icy_alb = jnp.where(
+        ice_sum < 1.5,
+        p.alb_dry + ice_sum * _fold(_recip(1.5), p.alb_snow - p.alb_dry),
+        p.alb_snow)
     albedo = jnp.full_like(wat, p.alb_dry)
     albedo = jnp.where(snowy_a, p.alb_snow,
                        jnp.where(icy_a & ~snowy_a, icy_alb, albedo))
     return wat, snow, ice, ice2, dep, vcold, q2n, t4n, albedo
 
 
-def _make_kernel(nsteps, chunk_t, out_stride, cfg, p, dyc, cond_dz, wcont,
-                 bl_iters, tile_p, lpad, tile_major=False,
-                 have_cofs=False, t_total=None, cof_red=None, slim=False):
-    subl = tile_p // LANE
+
+
+def _make_kernel(nsteps, out_stride, cfg, p, dyc, cond_dz, wcont, bl_iters,
+                 lpad, tile_p, block, slim=False, have_cofs=False,
+                 t_total=None, cof_red=None):
     nlayers = len(dyc)
-    nchunks = -(-nsteps // chunk_t)
+    l2 = nlayers + 2
     dt = cfg.dt
-    assert not (slim and not tile_major)
+    os32 = np.int32(out_stride)
 
-    def kernel(off_smem, *rest):
+    def kernel(off_ref, *refs):
         if slim:
-            # aux_in [4, subl, LANE]: sw_corr, lw_corr, coupling_end,
-            # coupling obs; trf_smem [T_pad] time-only traffic friction
-            (trf_smem, forc_hbm, tmp_init, scal_init, aux_in, out_hbm,
-             tmp_out, scal_out, fbuf, obuf, in_sems, out_sem) = rest
-            cof_in = aux_in
+            # aux_ref [4, P]: sw_corr, lw_corr, coupling_end, coupling obs;
+            # trf_ref [T_pad]: time-only traffic friction
+            (trf_ref, forc_ref, tmp_ref, scal_ref, aux_ref,
+             out_ref, tmp_out, scal_out) = refs
         else:
-            (forc_hbm, tmp_init, scal_init, out_hbm, tmp_out, scal_out,
-             fbuf, obuf, in_sems, out_sem) = rest
-
-        def fc(fbank, c):
-            return fbank[_SLIM_POS[c]] if slim else fbank[c]
+            forc_ref, tmp_ref, scal_ref, out_ref, tmp_out, scal_out = refs
         tile = pl.program_id(0)
-        p0 = tile * subl
+        b0 = pl.program_id(1) * block             # offset within the tile
+        pts = pl.ds(tile * tile_p + b0, block)    # this program's points
         # global step offset of this call (the production engine streams the
         # scan in time chunks; output rows index the GLOBAL output stride so
         # each chunk emits only the rows the run actually keeps)
-        off = off_smem[0]
-        os32 = np.int32(out_stride)
+        off = off_ref[0]
         out_base = jax.lax.div(off + os32 - np.int32(1), os32)
+        if slim:
+            aux = [aux_ref[k, pts] for k in range(4)]
 
-        tmp_out[...] = tmp_init[...]
-        scal_out[...] = scal_init[...]
+        def fc(t, c):
+            ch = _SLIM_POS[c] if slim else c
+            return forc_ref[tile, t, ch, pl.ds(b0, block)]
 
-        def in_dma(slot, chunk):
-            if tile_major:
-                # forcing [n_tiles, T, NCH, subl, LANE]: each tile's chunk
-                # slice is fully CONTIGUOUS in HBM (the fused station->point
-                # expansion writes tile-major so no transpose exists
-                # anywhere between the MXU expansion and this DMA)
-                src = forc_hbm.at[tile, pl.ds(chunk * chunk_t, chunk_t)]
+        def step_body(t, carry):
+            tmp, sc = carry
+            tg = t + off
+            tair = fc(t, C_TAIR)
+            failed_prev = sc[R_FAILED]
+            tsurf = sc[R_TSURF]
+            abnormal = (tsurf < -100.0) | (tsurf > 100.0)
+            failed = failed_prev | (fc(t, C_VALID) < 0.5) | abnormal
+            active = ~failed_prev
+
+            # SetCurrentValues + obs forcing
+            obs = fc(t, C_TSURF_OBS)
+            force_obs = obs > -100.0
+            tmp = ((tair, jnp.where(force_obs, obs, tmp[1]),
+                    jnp.where(force_obs, obs, tmp[2])) + tuple(tmp[3:]))
+            tsurf = jnp.where(force_obs, _surf_ave(tmp, cfg), tsurf)
+
+            # precipitation to storage
+            wat = sc[R_WAT] + fc(t, C_RAIN)
+            snow = sc[R_SNOW] + fc(t, C_SNOW)
+            ice, ice2, dep = sc[R_ICE], sc[R_ICE2], sc[R_DEP]
+
+            # boundary layer + latent heat
+            vz = fc(t, C_VZ)
+            air_vcap = fc(t, C_AIRVCAP)
+            bl, psim, psih = _bl_fixed_point(
+                sc[R_BLCOND], tsurf, tair, vz, air_vcap, p, bl_iters)
+            raero = jnp.minimum(
+                (p.log_mom + psim) * (p.log_heat + psih)
+                / (p.vk_const * p.vk_const * vz), 30.0)
+            tak = tair + 273.15
+            psych_c = 0.1 * (0.00063 * tak + 0.47496)
+            wat_den = (-0.0050 * tsurf * tsurf + 0.0079 * tsurf
+                       + 1000.0028)
+            esurf = _esat(tsurf)
+            eair = fc(t, C_EAIR)
+            le_num = air_vcap * (esurf - eair)
+            le_den = psych_c * raero
+            le = le_num / le_den
+            lheat = jnp.where(tsurf >= 0.0, p.lvap, p.lfus)
+            # XLA turns the reference's (le / (lheat*wat_den)) * 1000 * dt
+            # into one divide and one folded factor
+            evap = (le_num / (le_den * (lheat * wat_den))
+                    * _fold(1000.0, dt))
+            dry = (le > 0.0) & (wat <= 0.0)
+            le = jnp.where(dry, 0.0, le)
+            evap = jnp.where(dry, 0.0, evap)
+
+            # net radiation; under have_cofs the post-coupling decayed
+            # radiation coefficients are computed IN KERNEL from the
+            # per-point correction/window rows (forcing.cof_window
+            # semantics, src/Coupling.f90:82-88 + the lastValues reuse)
+            # so the fused tile-major forcing needs no per-point channel
+            if slim:
+                # SWCOF/LWCOF do not ride the slim forcing: they are 1
+                # outside coupling (and multiplying by the exact 1.0
+                # reproduces the full-channel path bit for bit)
+                sw_cof = jnp.float32(1.0)
+                lw_cof = jnp.float32(1.0)
             else:
-                src = forc_hbm.at[pl.ds(chunk * chunk_t, chunk_t), :,
-                                  pl.ds(p0, subl), :]
-            return pltpu.make_async_copy(src, fbuf.at[slot],
-                                         in_sems.at[slot])
+                sw_cof, lw_cof = fc(t, C_SWCOF), fc(t, C_LWCOF)
+            if have_cofs:
+                i = tg + np.int32(1)
+                i_eff = i
+                if t_total >= 2:
+                    i_eff = jnp.where(tg == np.int32(t_total - 1), i - 1, i)
+                cend_f = aux[2]
+                i_eff_f = i_eff.astype(jnp.float32)
+                dts = jnp.float32(dt)
+                expo = (-(dts * i_eff_f - dts * cend_f)
+                        / jnp.float32(cof_red))
+                dec = jnp.exp(jnp.minimum(expo, jnp.float32(0.0)))
+                on = ((i_eff_f >= cend_f)
+                      & (cend_f >= jnp.float32(1.0)))
+                sw_cof = sw_cof * jnp.where(
+                    on, jnp.float32(1.0) + aux[0] * dec, jnp.float32(1.0))
+                lw_cof = lw_cof * jnp.where(
+                    on, jnp.float32(1.0) + aux[1] * dec, jnp.float32(1.0))
+            # the coefficients scale the forcing BEFORE it meets albedo and
+            # emissivity: a product by an exact 1.0 (slim: a constant the
+            # compiler folds away) then leaves one expression shape for the
+            # GPU compiler to contract into FMAs, so every layout rounds
+            # alike
+            tk = tsurf + 273.15
+            tk2 = tk * tk
+            rnet = ((1.0 - sc[R_ALBEDO]) * (fc(t, C_SW) * sw_cof)
+                    + p.emiss * (fc(t, C_LW) * lw_cof)
+                    - p.emiss * p.sb_const * (tk2 * tk2))
 
-        in_dma(0, 0).start()
+            # stencil
+            trf = trf_ref[tg] if slim else fc(t, C_TRF)
+            new_tmp, hs1, hstor = _stencil(
+                tmp, bl, rnet, le, trf, dt, p, dyc, cond_dz, wcont, nlayers)
 
-        def chunk_body(chunk, _):
-            slot = jax.lax.rem(chunk, 2)
+            # melting limiter
+            q2, t4 = sc[R_Q2MELT], sc[R_T4MELT]
+            in_cpl = fc(t, C_INCPL) > 0.5
+            cplobs = aux[3] if slim else fc(t, C_CPLOBS)
+            new_tmp, q2 = _melting(new_tmp, tsurf, snow, ice, ice2, q2, t4,
+                                   hstor, hs1, in_cpl, cplobs, cfg, p)
+            tsurf_new = _surf_ave(new_tmp, cfg)
 
-            @pl.when(chunk + 1 < nchunks)
+            # storages
+            (wat, snow, ice, ice2, dep, vcold, q2, t4, albedo) = \
+                _road_cond(wat, snow, ice, ice2, dep, tsurf_new, evap,
+                           q2, t4, sc[R_VERYCOLD], cfg, p)
+
+            # commit (mask by active)
+            sel = lambda n, o: jnp.where(active, n, o)
+            tmp_new = tuple(sel(n, o) for n, o in zip(new_tmp, carry[0]))
+            sc_new = (sel(tsurf_new, sc[R_TSURF]), sel(wat, sc[R_WAT]),
+                      sel(snow, sc[R_SNOW]), sel(ice, sc[R_ICE]),
+                      sel(ice2, sc[R_ICE2]), sel(dep, sc[R_DEP]),
+                      sel(q2, sc[R_Q2MELT]), sel(t4, sc[R_T4MELT]),
+                      sel(evap, sc[R_EVAP]), sel(bl, sc[R_BLCOND]),
+                      sel(albedo, sc[R_ALBEDO]), sel(vcold, sc[R_VERYCOLD]),
+                      failed)
+
+            # output at the GLOBAL stride (the step failing CheckValues
+            # still emits; later steps are poisoned -- step.py semantics)
+            @pl.when(jax.lax.rem(tg, os32) == 0)
             def _():
-                in_dma(1 - slot, chunk + 1).start()
+                row = jax.lax.div(tg, os32) - out_base
+                for k, r in enumerate(OUT_ROWS):
+                    out_ref[row, k, pts] = jnp.where(failed_prev, -9999.0,
+                                                     sc_new[r])
+            return tmp_new, sc_new
 
-            in_dma(slot, chunk).wait()
+        tmp0 = tuple(tmp_ref[j, pts] for j in range(l2))
+        sc0 = tuple(scal_ref[r, pts] for r in range(NROWS))
+        sc0 = (sc0[:R_VERYCOLD]
+               + (sc0[R_VERYCOLD] > 0.5, sc0[R_FAILED] > 0.5))
+        tmp, sc = jax.lax.fori_loop(np.int32(0), np.int32(nsteps), step_body,
+                                    (tmp0, sc0))
+        for j in range(lpad):
+            tmp_out[j, pts] = tmp[j] if j < l2 else tmp_ref[j, pts]
+        for r in range(NROWS):
+            scal_out[r, pts] = (sc[r].astype(jnp.float32)
+                                if r in (R_VERYCOLD, R_FAILED) else sc[r])
 
-            def step_body(tlocal, _):
-                t = chunk * chunk_t + tlocal
-                f = fbuf[slot, tlocal]       # [NCH, SUBL, LANE]
-                run = t < nsteps
-                tg = jnp.asarray(t, jnp.int32) + off
-
-                tmp = tmp_out[...]
-                sc = scal_out[...]
-
-                tair = fc(f, C_TAIR)
-                failed_prev = sc[R_FAILED] > 0.5
-                tsurf = sc[R_TSURF]
-                abnormal = (tsurf < -100.0) | (tsurf > 100.0)
-                failed = failed_prev | (fc(f, C_VALID) < 0.5) | abnormal
-                active = (~failed_prev) & run
-
-                # SetCurrentValues + obs forcing
-                obs = fc(f, C_TSURF_OBS)
-                force_obs = obs > -100.0
-                tmp = jnp.stack(
-                    [tair, jnp.where(force_obs, obs, tmp[1]),
-                     jnp.where(force_obs, obs, tmp[2])]
-                    + [tmp[j] for j in range(3, tmp.shape[0])])
-                tsurf = jnp.where(force_obs, _surf_ave(tmp, cfg), tsurf)
-
-                # precipitation to storage
-                wat = sc[R_WAT] + fc(f, C_RAIN)
-                snow = sc[R_SNOW] + fc(f, C_SNOW)
-                ice, ice2, dep = sc[R_ICE], sc[R_ICE2], sc[R_DEP]
-
-                # boundary layer + latent heat
-                vz = fc(f, C_VZ)
-                air_vcap = fc(f, C_AIRVCAP)
-                bl, psim, psih, inv_kvz = _bl_fixed_point(
-                    sc[R_BLCOND], tsurf, tair, vz, air_vcap, p, bl_iters)
-                raero = jnp.minimum(
-                    (p.log_mom + psim) * (p.log_heat + psih)
-                    * (inv_kvz / p.vk_const), 30.0)
-                tak = tair + 273.15
-                psych_c = 0.1 * (0.00063 * tak + 0.47496)
-                wat_den = (-0.0050 * tsurf * tsurf + 0.0079 * tsurf
-                           + 1000.0028)
-                esurf = _esat(tsurf)
-                eair = fc(f, C_EAIR)
-                le = air_vcap * (esurf - eair) / (psych_c * raero)
-                lheat = jnp.where(tsurf >= 0.0, p.lvap, p.lfus)
-                evap = le / (lheat * wat_den) * 1000.0 * dt
-                dry = (le > 0.0) & (wat <= 0.0)
-                le = jnp.where(dry, 0.0, le)
-                evap = jnp.where(dry, 0.0, evap)
-
-                # net radiation; under have_cofs the post-coupling decayed
-                # radiation coefficients are computed IN KERNEL from the
-                # per-point correction/window rows (forcing.cof_window
-                # semantics, src/Coupling.f90:82-88 + the lastValues reuse)
-                # so the fused tile-major forcing needs no per-point channel
-                if slim:
-                    # SWCOF/LWCOF do not ride the slim forcing: they are 1
-                    # outside coupling (and multiplying by the exact 1.0
-                    # reproduces the full-channel path bit for bit)
-                    sw_cof = jnp.float32(1.0)
-                    lw_cof = jnp.float32(1.0)
-                else:
-                    sw_cof, lw_cof = f[C_SWCOF], f[C_LWCOF]
-                if have_cofs:
-                    i = tg + np.int32(1)
-                    last_q = (tg == np.int32(t_total - 1)) if t_total >= 2 \
-                        else False
-                    i_eff = jnp.where(last_q, i - 1, i) if t_total >= 2 else i
-                    cend_f = cof_in[2]
-                    i_eff_f = i_eff.astype(jnp.float32)
-                    dts = jnp.float32(dt)
-                    expo = (-(dts * i_eff_f - dts * cend_f)
-                            / jnp.float32(cof_red))
-                    dec = jnp.exp(jnp.minimum(expo, jnp.float32(0.0)))
-                    on = ((i_eff_f >= cend_f)
-                          & (cend_f >= jnp.float32(1.0)))
-                    sw_cof = sw_cof * jnp.where(
-                        on, jnp.float32(1.0) + cof_in[0] * dec,
-                        jnp.float32(1.0))
-                    lw_cof = lw_cof * jnp.where(
-                        on, jnp.float32(1.0) + cof_in[1] * dec,
-                        jnp.float32(1.0))
-                tk = tsurf + 273.15
-                tk2 = tk * tk
-                rnet = ((1.0 - sc[R_ALBEDO]) * fc(f, C_SW) * sw_cof
-                        + p.emiss * fc(f, C_LW) * lw_cof
-                        - p.emiss * p.sb_const * tk2 * tk2)
-
-                # stencil
-                trf = (trf_smem[tg] if slim else f[C_TRF])
-                new_tmp, hs1, hstor = _stencil(
-                    tmp, bl, rnet, le, trf, dt, p, dyc, cond_dz,
-                    wcont, nlayers)
-
-                # melting limiter
-                q2, t4 = sc[R_Q2MELT], sc[R_T4MELT]
-                in_cpl = fc(f, C_INCPL) > 0.5
-                cplobs = aux_in[3] if slim else f[C_CPLOBS]
-                new_tmp, q2 = _melting(new_tmp, tsurf, snow, ice, ice2, q2,
-                                       t4, hstor, hs1, in_cpl, cplobs,
-                                       cfg, p)
-                tsurf_new = _surf_ave(new_tmp, cfg)
-
-                # storages
-                (wat, snow, ice, ice2, dep, vcold, q2, t4, albedo) = \
-                    _road_cond(wat, snow, ice, ice2, dep, tsurf_new, evap,
-                               q2, t4, sc[R_VERYCOLD] > 0.5, cfg, p)
-
-                # commit (mask by active)
-                sel = lambda n, o: jnp.where(active, n, o)
-                tmp_out[...] = jnp.where(active[None], new_tmp, tmp_out[...])
-                updates = {
-                    R_TSURF: sel(tsurf_new, sc[R_TSURF]),
-                    R_WAT: sel(wat, sc[R_WAT]),
-                    R_SNOW: sel(snow, sc[R_SNOW]),
-                    R_ICE: sel(ice, sc[R_ICE]),
-                    R_ICE2: sel(ice2, sc[R_ICE2]),
-                    R_DEP: sel(dep, sc[R_DEP]),
-                    R_Q2MELT: sel(q2, sc[R_Q2MELT]),
-                    R_T4MELT: sel(t4, sc[R_T4MELT]),
-                    R_EVAP: sel(evap, sc[R_EVAP]),
-                    R_BLCOND: sel(bl, sc[R_BLCOND]),
-                    R_ALBEDO: sel(albedo, sc[R_ALBEDO]),
-                    R_VERYCOLD: sel(vcold.astype(jnp.float32),
-                                    sc[R_VERYCOLD]),
-                    R_FAILED: jnp.where(
-                        run, jnp.maximum(failed.astype(jnp.float32),
-                                         sc[R_FAILED]), sc[R_FAILED]),
-                }
-                sc_new = jnp.stack([updates.get(r, sc[r])
-                                    for r in range(NROWS)])
-                scal_out[...] = sc_new
-
-                # output at the GLOBAL stride (the step failing CheckValues
-                # still emits; later steps are poisoned -- step.py
-                # semantics).  Output events are rare (out_stride is ~30-60
-                # min in production) so each is its own small DMA -- this
-                # decouples out_stride from the forcing chunk size.
-                @pl.when(run & (jax.lax.rem(tg, os32) == 0))
-                def _():
-                    poison = failed_prev
-                    def field(r):
-                        return jnp.where(poison, -9999.0, sc_new[r])
-                    row = jnp.stack([field(R_TSURF), field(R_WAT),
-                                     field(R_SNOW), field(R_ICE),
-                                     field(R_ICE2), field(R_DEP),
-                                     jnp.zeros_like(tsurf),
-                                     jnp.zeros_like(tsurf)])
-                    obuf[0] = row
-                    out_dma = pltpu.make_async_copy(
-                        obuf,
-                        out_hbm.at[pl.ds(jax.lax.div(tg, os32)
-                                         - out_base, 1), :,
-                                   pl.ds(p0, subl), :],
-                        out_sem)
-                    out_dma.start()
-                    out_dma.wait()
-                return ()
-
-            jax.lax.fori_loop(0, chunk_t, step_body, (), unroll=False)
-            return ()
-
-        jax.lax.fori_loop(0, nchunks, chunk_body, (), unroll=False)
-
-    return kernel, nchunks
+    return kernel
 
 
 def pallas_scan(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
-                grid: LayerGrid, out_stride: int = 1, chunk_t: int = 8,
-                tile_p: int = None, bl_iters: int = 40,
+                grid: LayerGrid, out_stride: int = 1, bl_iters: int = 40,
                 interpret: bool = False, nsteps: int = None,
                 out_offset=None, n_out: int = None,
                 t_total: int = None, cof_red: float = None,
@@ -586,15 +543,14 @@ def pallas_scan(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     """Run the fused forecast scan.
 
     tmp0: [LPAD, P] float32 initial profile (row 0 air, rows 1..L ground,
-    row L+1 climatology; LPAD >= L+2, padded rows ignored);
+    row L+1 climatology; LPAD >= L+2, rows past L+2 pass through);
     scal0: [NROWS, P] packed scalar state;
     forcing: [T, NCH, P] packed forcing channels, OR tile-major
     [n_tiles, T, NCH, subl, LANE] (the fused-expansion layout: each tile's
     forcing is contiguous; detected by ndim == 5).
 
-    nsteps: actual step count when < T (the production engine pads the final
-    streaming chunk to the chunk_t multiple; steps >= nsteps are no-ops --
-    the kernel's ``run`` mask covers exactly this).
+    nsteps: steps to run, <= T (the production engine pads the final
+    streaming chunk to its chunk length; rows >= nsteps are never read).
 
     aux_rows (with slim_trf, the SLIM tile-major mode): [4, P] float32
     (sw_corr, lw_corr, coupling_end, coupling_obs).  With
@@ -611,29 +567,29 @@ def pallas_scan(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     the (static) number of stride hits in [out_offset, out_offset + nsteps);
     at least one row is always allocated (unwritten when there are no hits).
 
+    Each kernel program runs BLOCK points.  ``interpret=True`` runs the
+    kernel in the Pallas interpreter (CPU tests).
+
     Returns (tmp_final [LPAD, P], scal_final [NROWS, P],
              out [n_out, N_OUT_FIELDS, P]) with n_out = ceil(nsteps/out_stride)
     when out_offset is not given.
     """
     lpad, P = tmp0.shape
-    tile_major = forcing.ndim == 5
+    assert lpad >= grid.nlayers + 2, (lpad, grid.nlayers)
     slim = aux_rows is not None
-    if slim:
-        assert slim_trf is not None and tile_major
-    T = forcing.shape[1] if tile_major else forcing.shape[0]
-    if tile_major:
-        n_tiles_f, _, nch_f, subl_f, lane_f = forcing.shape
-        assert nch_f == (NCH_SLIM if slim else NCH), forcing.shape
-        assert lane_f == LANE, forcing.shape
-        tile_p = subl_f * LANE
-        assert n_tiles_f * tile_p == P, (forcing.shape, P)
+    if forcing.ndim == 5:
+        n_tiles, T, nch, subl, lane = forcing.shape
+        assert lane == LANE, forcing.shape
+        tile_p = subl * LANE
+        forcing = forcing.reshape(n_tiles, T, nch, tile_p)
     else:
-        nch_f = NCH
-        tile_p = tile_p or min(TILE_P, P)
-    assert tile_p % LANE == 0, tile_p
-    assert P % tile_p == 0, (P, tile_p)
-    subl = tile_p // LANE
-    assert T % chunk_t == 0, (T, chunk_t)
+        assert not slim, "the slim layout is tile-major"
+        T, nch, _ = forcing.shape
+        n_tiles, tile_p = 1, P
+        forcing = forcing.reshape(1, T, nch, P)
+    assert nch == (NCH_SLIM if slim else NCH), forcing.shape
+    assert n_tiles * tile_p == P, (forcing.shape, P)
+    assert P % LANE == 0, P
     nsteps = T if nsteps is None else nsteps
     assert 0 < nsteps <= T, (nsteps, T)
     if out_offset is None:
@@ -643,90 +599,43 @@ def pallas_scan(tmp0, scal0, forcing, cfg: StepConfig, p: PhysicsParams,
     else:
         assert n_out is not None, "out_offset requires an explicit n_out"
         n_out_total = max(int(n_out), 1)
-    off_arr = jnp.asarray(out_offset, jnp.int32).reshape(1)
-    rows = P // LANE                      # trailing (rows, LANE) point layout
-    tmp0 = tmp0.reshape(lpad, rows, LANE)
-    scal0 = scal0.reshape(NROWS, rows, LANE)
-    if not tile_major:
-        forcing = forcing.reshape(T, NCH, rows, LANE)
-
     have_cofs = slim and aux_cofs
     if have_cofs:
         assert t_total is not None and cof_red is not None
-    if slim:
-        aux_rows = jnp.asarray(aux_rows, jnp.float32).reshape(4, rows, LANE)
-        slim_trf = jnp.asarray(slim_trf, jnp.float32)
+    blk = BLOCK
+    assert tile_p % blk == 0, (tile_p, blk)
 
-    kernel, nchunks = _make_kernel(
-        nsteps, chunk_t, out_stride, cfg, p,
+    kernel = _make_kernel(
+        nsteps, out_stride, cfg, p,
         tuple(np.asarray(grid.dyc, np.float32).tolist()),
         tuple(np.asarray(grid.cond_dz, np.float32).tolist()),
         tuple(np.asarray(grid.wcont, np.float32).tolist()),
-        bl_iters, tile_p, lpad, tile_major=tile_major,
-        have_cofs=have_cofs, t_total=t_total,
-        cof_red=float(cof_red) if have_cofs else None, slim=slim)
+        bl_iters, lpad, tile_p, blk, slim=slim, have_cofs=have_cofs,
+        t_total=t_total, cof_red=float(cof_red) if have_cofs else None)
 
-    n_tiles = P // tile_p
-    out_shape = (
-        jax.ShapeDtypeStruct((n_out_total, N_OUT_FIELDS, rows, LANE),
-                             jnp.float32),
-        jax.ShapeDtypeStruct((lpad, rows, LANE), jnp.float32),
-        jax.ShapeDtypeStruct((NROWS, rows, LANE), jnp.float32),
-    )
-    flops_per_point_step = 600.0
-    in_specs = [pl.BlockSpec(memory_space=pltpu.SMEM)]  # global step offset
-    args = [off_arr]
+    args = [jnp.asarray(out_offset, jnp.int32).reshape(1)]
     if slim:
-        in_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))  # trf [T_pad]
-        args.append(slim_trf)
-    in_specs += [
-        pl.BlockSpec(memory_space=pl.ANY),          # forcing in HBM
-        pl.BlockSpec((lpad, subl, LANE), lambda i: (0, i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((NROWS, subl, LANE), lambda i: (0, i, 0),
-                     memory_space=pltpu.VMEM),
-    ]
+        args.append(jnp.asarray(slim_trf, jnp.float32))
     args += [forcing, tmp0, scal0]
     if slim:
-        in_specs.append(pl.BlockSpec((4, subl, LANE), lambda i: (0, i, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(aux_rows)
-    result = pl.pallas_call(
+        args.append(jnp.asarray(aux_rows, jnp.float32))
+    any_spec = pl.BlockSpec(memory_space=pl.ANY)
+    out, tmp_f, scal_f = pl.pallas_call(
         kernel,
-        grid=(n_tiles,),
-        in_specs=in_specs,
-        out_specs=(
-            pl.BlockSpec(memory_space=pl.ANY),          # outputs in HBM
-            pl.BlockSpec((lpad, subl, LANE), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((NROWS, subl, LANE), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
+        grid=(n_tiles, tile_p // blk),
+        in_specs=[any_spec] * len(args),
+        out_specs=(any_spec,) * 3,
+        out_shape=(
+            jax.ShapeDtypeStruct((n_out_total, N_OUT_FIELDS, P), jnp.float32),
+            jax.ShapeDtypeStruct((lpad, P), jnp.float32),
+            jax.ShapeDtypeStruct((NROWS, P), jnp.float32),
         ),
-        out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM((2, chunk_t, nch_f, subl, LANE), jnp.float32),
-            pltpu.VMEM((1, N_OUT_FIELDS, subl, LANE), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA,
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            # the step body's temporaries scale with the tile: 64 sublanes
-            # sits just under the default 16 MB scoped-vmem stack, 96 needs
-            # 16.5 MB -- raise the cap so wider tiles (more ILP across the
-            # serial boundary-layer chain) stay compilable
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=int(flops_per_point_step * P * nsteps),
-            bytes_accessed=int(forcing.size * 4 + n_out_total * 8 * P * 4),
-            transcendentals=int(10 * P * nsteps),
-        ),
+        compiler_params=plgpu.CompilerParams(num_warps=max(blk // 32, 1),
+                                             num_stages=1),
         interpret=interpret,
+        name="roadsurf_scan",
     )(*args)
-    out, tmp_f, scal_f = result
-    return (tmp_f.reshape(lpad, P), scal_f.reshape(NROWS, P),
-            out.reshape(n_out_total, N_OUT_FIELDS, P))
+    return tmp_f, scal_f, out
 
 
 # ---------------------------------------------------------------------------
@@ -738,7 +647,7 @@ def pack_state(state, lpad: int = None):
     scal0 [NROWS, P]) float32."""
     tmp = jnp.asarray(state.tmp, jnp.float32).T        # [L+2, P]
     l2, P = tmp.shape
-    lpad = lpad or -(-l2 // 8) * 8
+    lpad = lpad or l2
     tmp0 = jnp.zeros((lpad, P), jnp.float32).at[:l2].set(tmp)
     rows = [None] * NROWS
     f32 = lambda x: jnp.asarray(x, jnp.float32)
@@ -755,9 +664,7 @@ def pack_state(state, lpad: int = None):
     rows[R_ALBEDO] = f32(state.albedo)
     rows[R_VERYCOLD] = f32(state.very_cold)
     rows[R_FAILED] = f32(state.failed)
-    zero = jnp.zeros((P,), jnp.float32)
-    scal0 = jnp.stack([r if r is not None else zero for r in rows])
-    return tmp0, scal0
+    return tmp0, jnp.stack(rows)
 
 
 def unpack_state(tmp_f, scal_f, nlayers: int, state_template):
@@ -817,5 +724,4 @@ def pack_forcing(prep, sw_cof, lw_cof, coupling_tsurf):
     ch[C_INCPL] = f32(prep.in_coupling)
     ch[C_CPLOBS] = jnp.broadcast_to(
         f32(coupling_tsurf)[None, :], (T, P))
-    zero = jnp.zeros((T, P), jnp.float32)
-    return jnp.stack([c if c is not None else zero for c in ch], axis=1)
+    return jnp.stack(ch, axis=1)

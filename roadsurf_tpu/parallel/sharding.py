@@ -1,8 +1,8 @@
-"""Point-axis sharding over a TPU device mesh.
+"""Point-axis sharding over a device mesh.
 
 The reference's entire parallel structure is embarrassingly-parallel CPU
 threading over independent road points (examples/example1/src/WorkQueue.h:15-131,
-examples/example2 boost::asio pool).  The TPU-native equivalent: one
+examples/example2 boost::asio pool).  The device equivalent: one
 ``jax.sharding.Mesh`` with a ``points`` axis; every [P]-leading array carries a
 ``NamedSharding(P('points'))`` and XLA runs the batched scan with zero
 communication (columns are independent).  Collectives appear only for global
@@ -71,8 +71,7 @@ def pad_points(tree, multiple: int, axis: int = 0):
 
 
 def pallas_scan_sharded(tmp0, scal0, forcing, cfg, params, grid,
-                        mesh: Mesh, out_stride: int = 1, chunk_t: int = 8,
-                        tile_p: Optional[int] = None, bl_iters: int = 40,
+                        mesh: Mesh, out_stride: int = 1, bl_iters: int = 40,
                         interpret: bool = False, nsteps: Optional[int] = None,
                         out_offset=None, n_out: Optional[int] = None,
                         t_total: Optional[int] = None,
@@ -81,10 +80,11 @@ def pallas_scan_sharded(tmp0, scal0, forcing, cfg, params, grid,
                         aux_cofs: bool = False):
     """The fused Pallas forecast kernel over a points-sharded device mesh.
 
-    This is the production multi-chip path: ``shard_map`` hands each device
-    its own contiguous block of road points and launches the whole-scan
-    kernel locally -- zero collectives in the hot loop (columns are
-    independent, the TPU re-design of the reference's per-point thread pool,
+    This is the production multi-device path: ``shard_map`` hands each
+    device its own contiguous block of road points and launches the
+    whole-scan kernel locally -- zero collectives in the hot loop (columns
+    are independent, the batched re-design of the reference's per-point
+    thread pool,
     examples/example1/src/WorkQueue.h:15-131).  Layouts match
     ops.pallas_step.pallas_scan: tmp0 [LPAD, P], scal0 [NROWS, P],
     forcing [T, NCH, P]; the points axis of each is sharded over ``mesh``.
@@ -107,10 +107,6 @@ def pallas_scan_sharded(tmp0, scal0, forcing, cfg, params, grid,
             f"per-device points ({per_shard} = {n_points}/{ndev}) must be a "
             f"multiple of the kernel lane width ({LANE}); pad with "
             f"pad_points(tree, {ndev * LANE}) first")
-    if tile_p is not None and per_shard % tile_p:
-        raise ValueError(
-            f"per-device points ({per_shard}) must be a multiple of tile_p "
-            f"({tile_p}); pad with pad_points(tree, {ndev * tile_p}) first")
 
     if out_offset is None:
         eff_steps = forcing.shape[0] if nsteps is None else nsteps
@@ -127,8 +123,7 @@ def pallas_scan_sharded(tmp0, scal0, forcing, cfg, params, grid,
             kw["slim_trf"], kw["aux_rows"] = extra[0], extra[1]
             kw["aux_cofs"] = aux_cofs
         return pallas_scan(tmp, scal, forc, cfg, params, grid,
-                           out_stride=out_stride, chunk_t=chunk_t,
-                           tile_p=tile_p, bl_iters=bl_iters,
+                           out_stride=out_stride, bl_iters=bl_iters,
                            interpret=interpret, nsteps=nsteps,
                            out_offset=off, n_out=n_out,
                            t_total=t_total, cof_red=cof_red, **kw)

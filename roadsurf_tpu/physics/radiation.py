@@ -54,11 +54,9 @@ def modify_radiation(sw, sw_dir, lw, lw_net, elev, azim, sky_view,
     else:
         azim_idx = jnp.clip(jnp.round(azim).astype(jnp.int32) % 360, 0, 359)
         if horizons.ndim > 1:
-            # per-point tables: a take_along_axis over the minor 360-axis
-            # serializes on the TPU scalar core (measured ~2 s per
-            # 64-step x 1M chunk); a 360-way select sweep stays on the VPU
-            # (~20 ms) and picks the identical value (exactly one degree
-            # matches per element)
+            # per-point tables: a 360-way select sweep (instead of a
+            # take_along_axis over the minor 360-axis) picks the identical
+            # value -- exactly one degree matches per element
             horizon = jnp.zeros_like(elev)
             for d in range(360):
                 horizon = jnp.where(azim_idx == d, pexp(horizons[..., d]),

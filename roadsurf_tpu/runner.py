@@ -57,18 +57,22 @@ def build_times(config: dict, forecast_time: Optional[int], dt: float):
 
 
 def _resolve_engine(engine: str, settings, config) -> str:
-    """'auto' picks the streamed Pallas engine on real TPU hardware (coupled
-    runs use the segmented production driver); CPU runs use the XLA scan
-    engine.  The config path never sets per-point output depths (the
-    reference's tsurfOutputDepth is global, ex1/InputSettings.h:20); library
-    callers who build PointParams with per-point out_depth must pass
-    engine='scan' explicitly -- the production engine raises on it."""
+    """'auto' picks the streamed Pallas engine on a GPU (coupled runs use
+    the segmented production driver) and the XLA scan engine on the CPU
+    backend, where the kernel would only run interpreted.  The config path
+    never sets per-point output depths (the reference's tsurfOutputDepth is
+    global, ex1/InputSettings.h:20); library callers who build PointParams
+    with per-point out_depth must pass engine='scan' explicitly -- the
+    production engine raises on it."""
     if engine != "auto":
         return engine
     import jax
-    if jax.default_backend() == "tpu":
+    backend = jax.default_backend()
+    if backend == "gpu":
         return "pallas"
-    return "scan"
+    if backend == "cpu":
+        return "scan"
+    raise ValueError(f"no engine for the {backend!r} backend")
 
 
 def run(config_path: str, forecast_time_s: Optional[str] = None,
@@ -80,8 +84,12 @@ def run(config_path: str, forecast_time_s: Optional[str] = None,
         metrics=None):
     import dataclasses
 
+    from .io import native
     from .observability import RunMetrics, profile_trace
 
+    # the C++ data plane is built from native/ on first use (numpy fallback
+    # when no compiler is found)
+    native.load(build_if_missing=True)
     metrics = metrics if metrics is not None else RunMetrics()
     if verbose:
         metrics.announce = True
@@ -293,14 +301,14 @@ def run(config_path: str, forecast_time_s: Optional[str] = None,
 def run_production_config(config, settings, cal, sim_epochs, now, start, *,
                           output_path=None, checkpoint_in=None,
                           checkpoint_out=None, verbose=True, metrics=None,
-                          chunk_t: int = 64, out_stride=None, interpret=None):
+                          chunk_t: int = 64, out_stride=None):
     """The production path: streamed, sharded, fused-kernel execution of an
     example1/example2 config (uncoupled forecast workloads).
 
     The data plane stays station-keyed ([S, T]); per-point forcing expands on
     device chunk by chunk (production.StationExpander), so memory is
-    O(S*T + chunk), not O(P*T) -- the TPU re-design of the reference's async
-    operational driver (examples/example2/src/roadrunner.cpp:595-719)."""
+    O(S*T + chunk), not O(P*T) -- the device re-design of the reference's
+    async operational driver (examples/example2/src/roadrunner.cpp:595-719)."""
     import jax
     import jax.numpy as jnp
 
@@ -477,7 +485,7 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
                                       & (np.asarray(svf) > -0.01)))
             # grid+station overlays AND sky-view station configs ride the
             # fused-generic path: the station part emits RAW tile-major
-            # windows (one-hot MXU expansion) and the per-point prep --
+            # windows (one-hot matmul expansion) and the per-point prep --
             # incl. the sky-view correction -- runs in kernel layout; the
             # sort permutation is shared with every grid part below
             raw_tm = bool(grid_srcs) or skyview_any
@@ -666,7 +674,7 @@ def run_production_config(config, settings, cal, sim_epochs, now, start, *,
     drain = "shard" if nprocs > 1 else "gather"
     res = run_fn(
         model, expander, pts, cal, state0, anchors=anchors, mesh=mesh,
-        chunk_t=chunk_t, out_stride=out_stride, interpret=interpret,
+        chunk_t=chunk_t, out_stride=out_stride,
         metrics=metrics, progress=progress, drain=drain)
     lo_r, hi_r = res.point_range
 
@@ -768,7 +776,7 @@ def main(argv=None):
         return merge_shards_cli(argv[1:])
     ap = argparse.ArgumentParser(
         prog="roadsurf-tpu",
-        description="TPU road weather model runner (example1-compatible)")
+        description="Road weather model runner (example1-compatible)")
     ap.add_argument("-c", "--config", required=False)
     ap.add_argument("config_pos", nargs="?", help="config file (positional)")
     ap.add_argument("-t", "--time", help="forecast time YYYYMMDDTHHMM")
@@ -780,8 +788,8 @@ def main(argv=None):
     ap.add_argument("--checkpoint-out", dest="ck_out")
     ap.add_argument("--engine", choices=("auto", "scan", "pallas"),
                     default="auto",
-                    help="auto = streamed fused-kernel engine on TPU for "
-                         "uncoupled runs, XLA scan otherwise")
+                    help="auto = streamed fused-kernel engine on a GPU, "
+                         "XLA scan engine on the CPU backend")
     ap.add_argument("--profile", dest="profile_dir",
                     help="capture a JAX profiler trace to this directory")
     ap.add_argument("--chunk-t", dest="chunk_t", type=int, default=0,
@@ -792,6 +800,8 @@ def main(argv=None):
     cfg = args.config or args.config_pos
     if not cfg:
         ap.error("Configuration file not given")
+    from . import use_compile_cache
+    use_compile_cache()
     run(cfg, args.time, args.output, args.ck_in, args.ck_out,
         verbose=args.verbose, engine=args.engine,
         profile_dir=args.profile_dir, chunk_t=args.chunk_t)

@@ -3,7 +3,7 @@ drives ``runner.run`` -- the operational entry point -- across real OS
 processes.  With ``jax.process_count() > 1`` the runner takes the
 ``drain='shard'`` branch (runner.py): each process streams + drains ONLY its
 own point columns, writes ``<out>.shardNNNNN.npz`` with a range manifest and
-a per-shard checkpoint -- the multi-host deployment path (VERDICT r4 item 4).
+a per-shard checkpoint -- the multi-host deployment path.
 
 Usage: python _mp_runner_worker.py <port> <num_processes> <process_id>
 Env: MP_RUN_CFG (config json), MP_RUN_OUT (output base), MP_RUN_CK

@@ -89,8 +89,7 @@ def main():
     state0 = jax.tree.map(np.asarray,
                           model.init(raw_pt, cal2, dtype=jnp.float32))
     res = production.run_production(model, exp, pts2, cal2, state0,
-                                    mesh=mesh, chunk_t=16, out_stride=8,
-                                    interpret=True)
+                                    mesh=mesh, chunk_t=16, out_stride=8)
     _, out_ref2 = model.run(raw_pt, pts2, cal2)
     want = np.asarray(out_ref2.tsurf)[::8]
     np.testing.assert_allclose(res.fields["tsurf"], want,
@@ -106,8 +105,7 @@ def main():
                   "settings": settings, "params": model.params,
                   "hour": cal2.hour, "t_total": T})
     res_f = production.run_production(model, exp_f, pts2, cal2, state0,
-                                      mesh=mesh, chunk_t=16, out_stride=8,
-                                      interpret=True)
+                                      mesh=mesh, chunk_t=16, out_stride=8)
     np.testing.assert_allclose(res_f.fields["tsurf"], res.fields["tsurf"],
                                rtol=2e-6, atol=2e-6)
 
@@ -124,7 +122,7 @@ def main():
 
     res_s = production.run_production(model, exp_f, pts2, cal2, state0,
                                       mesh=mesh, chunk_t=16, out_stride=8,
-                                      interpret=True, drain="shard")
+                                      drain="shard")
     lo_s, hi_s = res_s.point_range
     assert hi_s - lo_s == P2 // nproc, (res_s.point_range, P2, nproc)
     np.testing.assert_array_equal(res_s.fields["tsurf"],
@@ -144,7 +142,7 @@ def main():
             np.testing.assert_array_equal(fields[n], res_f.fields[n],
                                           err_msg=n)
 
-    # --- COUPLED production across processes (VERDICT r4 item 4): the
+    # --- COUPLED production across processes: the
     # segmented driver's phase-B window engine + decayed-cof phase C run
     # SPMD; per-shard drain columns must match the single-process scan
     # coupled engine ---------------------------------------------------
@@ -174,7 +172,7 @@ def main():
                                          pts=pts_c))
     res_c = production.run_production_coupled(
         model_c, exp_c, pts_c, cal2, state0_c, mesh=mesh, chunk_t=16,
-        out_stride=8, interpret=True, drain="shard")
+        out_stride=8, drain="shard")
     _, out_pc = model_c.run_coupled(raw_pt_b, pts_c, cal2, out_stride=8)
     out_pc = np.asarray(out_pc)
     lo_c, hi_c = res_c.point_range
@@ -219,11 +217,10 @@ def main():
     state0_g = jax.tree.map(np.asarray,
                             model.init(raw0, cal3, dtype=jnp.float32))
     eng_g = production._Engine(model, comp, pts_g, cal3, state0_g,
-                               mesh=mesh, chunk_t=16, interpret=True)
+                               mesh=mesh, chunk_t=16)
     assert eng_g.fused_generic, "composite fused path must engage SPMD"
     res_g = production.run_production(model, comp, pts_g, cal3, state0_g,
-                                      mesh=mesh, chunk_t=16, out_stride=8,
-                                      interpret=True)
+                                      mesh=mesh, chunk_t=16, out_stride=8)
     # host reference: merged per-point series through the scan engine
     src = GridSource.__new__(GridSource)
     src.is_observation = False

@@ -97,7 +97,7 @@ def test_segmented_single_chunk():
 
 
 def test_coupled_skyview_oracle_parity():
-    """Coupled + sky view vs the oracle (VERDICT round-1 item 5): exercises
+    """Coupled + sky view vs the oracle: exercises
     the restore-time SW/LW coefficient choice with sky view active
     (src/Coupling.f90:66-77 takes the LW branch regardless of SW>LW)."""
     model, raw, pts, cal, settings = build_case(

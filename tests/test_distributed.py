@@ -67,7 +67,7 @@ def test_multiprocess_scan_parity():
 
 
 def test_multiprocess_runner_shards(tmp_path):
-    """The runner CLI's multi-host branch end to end (VERDICT r4 item 4):
+    """The runner CLI's multi-host branch end to end:
     2 real processes drive ``runner.run`` on the example2 operational config
     (NWP grid + ASCII station obs, COUPLED) -- each writes its output shard
     + per-shard checkpoint (runner.py drain='shard' branch); the shards are

@@ -1,5 +1,6 @@
 """Pallas fused-scan kernel parity vs the XLA-scan path (float32 vs float32,
-interpret mode on CPU; the real-TPU compile path is exercised by bench)."""
+interpret mode on CPU; the compiled GPU path is exercised by the gpu-marked
+tests and chip_smoke.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,7 @@ from roadsurf_tpu.state import default_point_params
 
 
 def _run_pair(scenario="winter_mix", sim_len=128, npoints=1024, seed=21,
-              out_stride=1, chunk_t=64):
+              out_stride=1):
     settings = ModelSettings(sim_len=sim_len, dt=30.0)
     model = Model(settings)
     raw, cal = synthetic_raw(npoints, sim_len, seed=seed, scenario=scenario,
@@ -36,7 +37,7 @@ def _run_pair(scenario="winter_mix", sim_len=128, npoints=1024, seed=21,
     forcing = ps.pack_forcing(prep, ones, ones, obs)
     tmp_f, scal_f, out = ps.pallas_scan(
         tmp0, scal0, forcing, model.cfg, model.params, model.grid,
-        out_stride=out_stride, chunk_t=chunk_t, interpret=True)
+        out_stride=out_stride, interpret=True)
     final_pal = ps.unpack_state(tmp_f, scal_f, settings.nlayers, state)
     return final_ref, out_ref, final_pal, out, out_stride
 
@@ -63,3 +64,41 @@ def test_pallas_output_stride():
     np.testing.assert_allclose(np.asarray(out[:, 0, :]),
                                np.asarray(out_ref.tsurf)[::4],
                                rtol=2e-5, atol=2e-4)
+
+
+def _folded_cases(dt):
+    """(reference expression as physics/ writes it, the kernel's constant
+    factor for it) for every constant chain the kernel folds itself."""
+    p = Model(ModelSettings(sim_len=8, dt=dt)).params
+    tph = ModelSettings(dt=dt).tph
+    heat = p.wat_m_heat * p.wat_dens
+    s2i = 0.25 / (0.2 + 0.25)
+    return {
+        "melt_mm": (lambda x: 1000.0 * (x * dt) / heat,
+                    ps._fold(ps._fold(1000.0, dt), ps._recip(heat))),
+        "melt_heat": (lambda x: heat * (x / 1000.0) / dt,
+                      ps._fold(ps._fold(heat, ps._recip(1000.0)),
+                               ps._recip(dt))),
+        "wat_wear": (lambda x: 10.0 * x * tph, ps._fold(10.0, tph)),
+        "snow_to_ice": (lambda x: s2i * (x * tph), ps._fold(s2i, tph)),
+        "albedo": (lambda x: (x / 1.5) * (p.alb_snow - p.alb_dry),
+                   ps._fold(ps._recip(1.5), p.alb_snow - p.alb_dry)),
+        "per_dt": (lambda x: x / dt, ps._recip(dt)),
+        "evap": (lambda x: x * 1000.0 * dt, ps._fold(1000.0, dt)),
+    }
+
+
+@pytest.mark.parametrize("dt", [30.0, 60.0])
+@pytest.mark.parametrize("name", sorted(_folded_cases(30.0)))
+def test_kernel_folds_constants_as_xla(name, dt):
+    """XLA compiles ``x / c`` as ``x * (1 / c)`` and folds a chain of
+    constant factors into one; Triton keeps the source form.  The kernel
+    writes the folded factor itself, so the compiled kernel rounds as the
+    XLA reference does: x times the kernel's factor (numpy, no XLA) equals
+    the reference expression compiled by XLA, bit for bit."""
+    ref_fn, factor = _folded_cases(dt)[name]
+    assert isinstance(factor, np.float32)
+    x = np.random.default_rng(3).uniform(0.0, 500.0, 4096).astype(np.float32)
+    got = x * factor
+    want = np.asarray(jax.jit(ref_fn)(jnp.asarray(x)))
+    np.testing.assert_array_equal(got, want)

@@ -1,6 +1,7 @@
-"""float32 (TPU perf mode) vs float64 (parity mode) drift over long horizons.
+"""float32 (perf mode) vs float64 (parity mode) drift over long horizons.
 
-The reference is float64 end-to-end on CPU; the TPU perf path runs float32.
+The reference is float64 end-to-end on CPU; the device perf path runs
+float32.
 SURVEY.md flags the Kelvin^4 radiation term and long-horizon drift as the
 risks.  These tests quantify the drift over a 12 h window and bound it --
 the acceptance criterion is drift well below the model's physical accuracy

@@ -4,7 +4,7 @@ The ragged/phase-boundary logic (the t_pad "+1 chunk" overhang, the k_alloc
 output-row allocation, the coupled driver's non-aligned phase offsets) is
 exercised here over deliberately awkward shape combinations -- prime T,
 out_stride larger than the chunk, coupling windows straddling chunk
-boundaries -- against the XLA scan engines (VERDICT r3 next-round item 8).
+boundaries -- against the XLA scan engines.
 All runs are interpret-mode on the 8-virtual-device CPU mesh at small P.
 """
 import dataclasses
@@ -71,7 +71,7 @@ def test_uncoupled_chunk_grid_sweep(T, chunk_t, out_stride):
     state0 = model.init(raw_pt, cal, dtype=jnp.float32)
     res = production.run_production(
         model, exp, pts, cal, state0, mesh=mesh, chunk_t=chunk_t,
-        out_stride=out_stride, inner_chunk_t=8, interpret=True)
+        out_stride=out_stride)
     want_steps = np.arange(0, T, out_stride)
     assert np.array_equal(res.out_steps, want_steps)
     np.testing.assert_allclose(
@@ -99,7 +99,7 @@ def test_coupled_window_offset_sweep(T, chunk_t, ws, we, out_stride):
     state0 = model.init(raw_pt, cal, dtype=jnp.float32, pts=pts)
     res = production.run_production_coupled(
         model, exp, pts, cal, state0, mesh=mesh, chunk_t=chunk_t,
-        out_stride=out_stride, inner_chunk_t=8, interpret=True)
+        out_stride=out_stride)
     want_steps = np.arange(0, T, out_stride)
     assert np.array_equal(res.out_steps, want_steps)
     names = ["tsurf", "wat", "snow", "ice", "ice2", "dep"]
@@ -128,7 +128,7 @@ def test_skyview_flat_horizons_matches_scan():
     state0 = model.init(raw_pt, cal, dtype=jnp.float32)
     res = production.run_production(
         model, exp, pts, cal, state0, mesh=mesh, chunk_t=16,
-        out_stride=8, inner_chunk_t=8, interpret=True)
+        out_stride=8)
     want_steps = np.arange(0, T, 8)
     np.testing.assert_allclose(
         res.fields["tsurf"], np.asarray(out_ref.tsurf)[want_steps],
@@ -167,11 +167,9 @@ def test_shard_drain_single_process_matches_gather():
     exp = _expander(raw_st, st_idx, mesh, chunk_t=16)
     state0 = model.init(raw_pt, cal, dtype=jnp.float32)
     a = production.run_production(model, exp, pts, cal, state0, mesh=mesh,
-                                  chunk_t=16, out_stride=8,
-                                  inner_chunk_t=8, interpret=True)
+                                  chunk_t=16, out_stride=8)
     b = production.run_production(model, exp, pts, cal, state0, mesh=mesh,
                                   chunk_t=16, out_stride=8,
-                                  inner_chunk_t=8, interpret=True,
                                   drain="shard")
     assert b.point_range == (0, len(st_idx))
     for n in a.fields:
@@ -207,21 +205,31 @@ def test_validation_counts_screen():
 
 
 def test_raw_tm_chunk_halving_and_active_channels():
-    """The raw-tm HBM chunk rule (runner auto-halving) and the shared
+    """The raw-tm chunk memory rule (runner auto-halving) and the shared
     active-channel predicate."""
     import numpy as np
 
     from roadsurf_tpu import production
     from roadsurf_tpu.forcing import RawForcing
 
-    # 11 active channels at 1M points: 64 -> 32 (measured OOM boundary)
-    assert production.raw_tm_chunk_t(64, 1 << 20, 11) == 32
+    rule = lambda c, p, n: production.raw_tm_chunk_t(c, p, n,
+                                                    budget_bytes=8e9)
+    # 11 active channels at 1M points: 64 -> 32 under an 8 GB budget
+    assert rule(64, 1 << 20, 11) == 32
     # obs-only station part (1 active): 64 stays
-    assert production.raw_tm_chunk_t(64, 1 << 20, 1) == 64
+    assert rule(64, 1 << 20, 1) == 64
     # floor respected
-    assert production.raw_tm_chunk_t(64, 1 << 24, 11) == 16
+    assert rule(64, 1 << 24, 11) == 16
     # small point counts untouched
-    assert production.raw_tm_chunk_t(1024, 1 << 12, 11) == 1024
+    assert rule(1024, 1 << 12, 11) == 1024
+    # a non-power-of-two start halves to the first length that fits ...
+    assert rule(216, 1 << 20, 11) == 27
+    # ... and never undershoots the floor (27 -> 16, not 13)
+    assert rule(216, 1 << 22, 11) == 16
+    # the default budget is a share of the device's memory
+    dev = production.CHUNK_MEM_SHARE * production.device_bytes()
+    assert production.raw_tm_chunk_t(216, 1 << 20, 11) == \
+        production.raw_tm_chunk_t(216, 1 << 20, 11, budget_bytes=dev)
 
     S, T = 4, 9
     miss = np.full((S, T), -9999.9, np.float32)

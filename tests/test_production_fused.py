@@ -1,10 +1,10 @@
-"""Fused MXU station->point expansion (the tile-major kernel forcing path).
+"""Fused one-hot station->point expansion (the tile-major kernel forcing
+path).
 
-The production chunk previously serialized a station row-gather + transpose
-(54.7 ms/chunk at 1M points, VERDICT r3 weak #1) before the kernel.  The
-fused path sorts points by station within each device block, making every
+Instead of a station row-gather + transpose before the kernel, the fused
+path sorts points by station within each device block, making every
 kernel tile's stations a small contiguous window, and expands station->point
-with one batched one-hot matmul on the MXU (bit-exact selection at
+with one batched one-hot matmul (bit-exact selection at
 Precision.HIGHEST), writing the kernel's tile-major layout directly --
 no transpose, no point-major intermediate.
 
@@ -54,13 +54,12 @@ def test_fused_engages_and_matches_gather_bitwise():
     for label, exp in (("fused", exp_f), ("gather", exp_g)):
         eng = production._Engine(model, exp, pts, cal, state0,
                                  anchors=anchors, mesh=mesh, chunk_t=32,
-                                 out_stride=6, inner_chunk_t=8,
-                                 interpret=True)
+                                 out_stride=6)
         assert eng.fast
         assert eng.fused == (label == "fused")
         runs[label] = production.run_production(
             model, exp, pts, cal, state0, anchors=anchors, mesh=mesh,
-            chunk_t=32, out_stride=6, inner_chunk_t=8, interpret=True)
+            chunk_t=32, out_stride=6)
     for name in runs["fused"].fields:
         np.testing.assert_array_equal(runs["fused"].fields[name],
                                       runs["gather"].fields[name],
@@ -93,7 +92,7 @@ def test_fused_coupled_matches_gather_bitwise():
     for label, exp in (("fused", exp_f), ("gather", exp_g)):
         runs[label] = production.run_production_coupled(
             model, exp, pts, cal, state0, mesh=mesh, chunk_t=32,
-            out_stride=6, inner_chunk_t=8, interpret=True)
+            out_stride=6)
     for name in runs["fused"].fields:
         np.testing.assert_array_equal(runs["fused"].fields[name],
                                       runs["gather"].fields[name],
@@ -127,7 +126,7 @@ def test_coupled_fast_provider_matches_generic_bitwise():
     for label, exp in (("fast", exp_fast), ("generic", exp_plain)):
         runs[label] = production.run_production_coupled(
             model, exp, pts, cal, state0, mesh=mesh, chunk_t=32,
-            out_stride=6, inner_chunk_t=8, interpret=True)
+            out_stride=6)
     for name in runs["fast"].fields:
         np.testing.assert_array_equal(runs["fast"].fields[name],
                                       runs["generic"].fields[name],
@@ -139,7 +138,7 @@ def test_coupled_fast_provider_matches_generic_bitwise():
 def test_fused_plan_autotunes_tile_for_dense_maps():
     """A dense station map that blows the span cap at the device-block
     default tile auto-tunes to a HALVED tile (spans shrink with the tile)
-    instead of bailing to the row-gather path (VERDICT r4 item 5) -- and
+    instead of bailing to the row-gather path -- and
     stays bitwise-equal to the gather expansion."""
     # a tile of tile_p sorted points drawn from S stations spans
     # ~S * tile_p / p_loc rows: with p_loc=512 and S=800, the default
@@ -161,10 +160,10 @@ def test_fused_plan_autotunes_tile_for_dense_maps():
     state0 = model.init(raw_pt, cal, dtype=jnp.float32)
     res = production.run_production(
         model, exp_f, pts, cal, state0, mesh=mesh, chunk_t=32,
-        out_stride=12, inner_chunk_t=8, interpret=True)
+        out_stride=12)
     ref = production.run_production(
         model, exp_g, pts, cal, state0, mesh=mesh, chunk_t=32,
-        out_stride=12, inner_chunk_t=8, interpret=True)
+        out_stride=12)
     for name in res.fields:
         np.testing.assert_array_equal(res.fields[name], ref.fields[name],
                                       err_msg=name)
@@ -196,10 +195,10 @@ def test_fused_infeasible_falls_back_to_gather():
     state0 = model.init(raw_pt, cal, dtype=jnp.float32)
     res = production.run_production(
         model, exp_f, pts, cal, state0, mesh=mesh, chunk_t=32,
-        out_stride=12, inner_chunk_t=8, interpret=True)
+        out_stride=12)
     ref = production.run_production(
         model, exp_g, pts, cal, state0, mesh=mesh, chunk_t=32,
-        out_stride=12, inner_chunk_t=8, interpret=True)
+        out_stride=12)
     for name in res.fields:
         np.testing.assert_array_equal(res.fields[name], ref.fields[name],
                                       err_msg=name)
@@ -219,10 +218,10 @@ def test_fused_ragged_and_stride_edges():
     for out_stride in (7, 19):
         a = production.run_production(
             model, exp_f, pts, cal, state0, mesh=mesh, chunk_t=16,
-            out_stride=out_stride, inner_chunk_t=8, interpret=True)
+            out_stride=out_stride)
         b = production.run_production(
             model, exp_g, pts, cal, state0, mesh=mesh, chunk_t=16,
-            out_stride=out_stride, inner_chunk_t=8, interpret=True)
+            out_stride=out_stride)
         for name in a.fields:
             np.testing.assert_array_equal(a.fields[name], b.fields[name],
                                           err_msg=f"{name}@{out_stride}")

@@ -1,4 +1,4 @@
-"""Fused-generic tile-major production path (VERDICT r4 item 1): the
+"""Fused-generic tile-major production path: the
 operational grid / grid+station configurations ride the slim tile-major
 kernel layout with the per-point forcing prep computed in kernel layout.
 
@@ -6,7 +6,7 @@ Parity chain:
  1. forcing.prepare_window(time_axis=1) on tile-major leaves == the flat
     [Tc, P] call, bitwise (same elementwise op sequence);
  2. GridExpander tiled interpolation == the flat layout, bitwise;
- 3. StationExpander.window_tm (raw one-hot MXU expansion) == window(), bitwise;
+ 3. StationExpander.window_tm (raw one-hot expansion) == window(), bitwise;
  4. run_production via the fused-generic engine == the generic per-point
     engine, for a pure grid config and a grid+station composite.
 """
@@ -209,7 +209,7 @@ def test_grid_device_extraction_matches_host():
 
 
 def test_station_window_tm_matches_window():
-    """Raw one-hot MXU expansion == the row-gather expansion, bitwise
+    """Raw one-hot expansion == the row-gather expansion, bitwise
     (f32 HIGHEST selection), in the expander's sorted point order."""
     P, T = 1024, 97
     raw_st, st_idx = _station_case(P, T)
@@ -257,12 +257,10 @@ def test_production_grid_fused_matches_generic():
             (P, T)) for n in RawForcing._fields))
         state0 = model.init(raw0, cal, dtype=jnp.float32)
         eng_probe = production._Engine(model, exp, pts, cal, state0,
-                                       mesh=mesh, chunk_t=32,
-                                       interpret=True)
+                                       mesh=mesh, chunk_t=32)
         assert eng_probe.fused_generic == (tile_p is None)
         res = production.run_production(model, exp, pts, cal, state0,
-                                        mesh=mesh, chunk_t=32, out_stride=6,
-                                        interpret=True)
+                                        mesh=mesh, chunk_t=32, out_stride=6)
         results.append(res)
     fused, gen = results
     assert np.array_equal(fused.out_steps, gen.out_steps)
@@ -307,14 +305,12 @@ def test_production_skyview_fused_matches_generic():
         exp = production.StationExpander(raw_st, st_idx, mesh, chunk_t=32,
                                          raw_tm=fused_mode)
         eng_probe = production._Engine(model, exp, pts, cal, state0,
-                                       mesh=mesh, chunk_t=32,
-                                       interpret=True)
+                                       mesh=mesh, chunk_t=32)
         assert eng_probe.enable_sky
         assert eng_probe.fused_generic == fused_mode
         assert not eng_probe.flat_horizons
         res = production.run_production(model, exp, pts, cal, state0,
-                                        mesh=mesh, chunk_t=32, out_stride=6,
-                                        interpret=True)
+                                        mesh=mesh, chunk_t=32, out_stride=6)
         results.append(res)
     fused, gen = results
     for n in ("tsurf", "wat", "snow", "ice", "ice2", "dep"):
@@ -368,12 +364,10 @@ def test_production_composite_fused_matches_generic():
             for n in RawForcing._fields))
         state0 = model.init(raw0, cal, dtype=jnp.float32)
         eng_probe = production._Engine(model, exp, pts, cal, state0,
-                                       mesh=mesh, chunk_t=32,
-                                       interpret=True)
+                                       mesh=mesh, chunk_t=32)
         assert eng_probe.fused_generic == fused_mode
         res = production.run_production(model, exp, pts, cal, state0,
-                                        mesh=mesh, chunk_t=32, out_stride=6,
-                                        interpret=True)
+                                        mesh=mesh, chunk_t=32, out_stride=6)
         results.append(res)
     fused, gen = results
     assert np.array_equal(fused.out_steps, gen.out_steps)

@@ -87,12 +87,12 @@ def test_pallas_sharded_matches_single_device():
 
     tmp_ref, scal_ref, out_ref = ps.pallas_scan(
         tmp0, scal0, forcing, model.cfg, model.params, model.grid,
-        out_stride=4, chunk_t=16, interpret=True)
+        out_stride=4, interpret=True)
 
     mesh = make_mesh()
     tmp_s, scal_s, out_s = pallas_scan_sharded(
         tmp0, scal0, forcing, model.cfg, model.params, model.grid, mesh,
-        out_stride=4, chunk_t=16, interpret=True)
+        out_stride=4, interpret=True)
     assert not out_s.sharding.is_fully_replicated
     np.testing.assert_array_equal(np.asarray(tmp_s), np.asarray(tmp_ref))
     np.testing.assert_array_equal(np.asarray(scal_s), np.asarray(scal_ref))

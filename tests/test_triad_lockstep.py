@@ -4,7 +4,7 @@ lockstep for EVERY physics feature flag.
 Physics intentionally lives in three places (CLAUDE.md invariant):
   * ``oracle.py``      -- scalar float64, control-flow-literal ground truth
   * ``step.py``        -- the vectorized XLA step
-  * ``ops/pallas_step.py`` -- the fused TPU kernel
+  * ``ops/pallas_step.py`` -- the fused GPU kernel
 Any physics change must land in all three.  This test is the tripwire: for
 every flag combination below, oracle == scan at 1e-9 (float64) and
 kernel == scan at float32 round-off.  ADDING A ModelSettings FIELD FAILS
@@ -99,7 +99,7 @@ def test_triad_lockstep(combo):
     forcing = ps.pack_forcing(prep, ones, ones, obs)
     tmp_f, scal_f, pout = ps.pallas_scan(
         tmp0, scal0, forcing, model.cfg, model.params, model.grid,
-        out_stride=1, chunk_t=16, interpret=True)
+        out_stride=1, interpret=True)
     np.testing.assert_allclose(np.asarray(pout[:, 0, :]),
                                np.asarray(out32.tsurf),
                                rtol=2e-5, atol=2e-4,

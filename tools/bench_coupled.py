@@ -1,4 +1,4 @@
-"""Coupled-mode production benchmark on the real TPU (round-1 review item 2).
+"""Coupled-mode production benchmark on the GPU.
 
 Measures run_production_coupled at operational scale: the streamed Pallas
 kernel carries phases A/C while the coupling window (src/Coupling.f90) runs
@@ -41,7 +41,7 @@ def main(argv=None):
     ap.add_argument("--chunk-t", type=int, default=0,
                     help="0 = auto-size for the point count")
     ap.add_argument("--fast", action="store_true",
-                    help="station-level prepared channels + fused MXU "
+                    help="station-level prepared channels + fused one-hot "
                          "expansion (phases A/C fused incl. the in-kernel "
                          "cof decay)")
     ap.add_argument("--grid", action="store_true",

@@ -1,14 +1,10 @@
-"""Measured CPU baseline: this repo's own XLA scan engine on the host CPU.
+"""CPU baseline: this repo's own XLA scan engine on the host CPU.
 
-VERDICT r2 weak #2: the benches' ``vs_baseline`` denominator was an invented
-2.0e7 point-steps/s estimate for a reference CPU node.  This measures a real
-number: the float32 scan engine (full physics, identical numerics to the TPU
-path) on the multi-core host CPU backend at a production-shaped workload.
-The result goes into BASELINE.md and becomes the denominator in bench*.py.
-
-The host here is the TPU VM's CPU; the reference's own Fortran would run on
-a comparable node.  Per-core rates are printed so other core counts can be
-scaled.
+Measures the float32 scan engine (full physics, the same numerics as the
+device path) on the multi-core host CPU backend at a production-shaped
+workload -- the stand-in for a reference CPU node.  Per-core rates are
+printed so other core counts can be scaled; run it on the host beside the
+card to compare.
 
 Usage: python tools/bench_cpu_baseline.py [--points 8192] [--steps 2961]
 """

@@ -29,8 +29,8 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-# host-side ingest benchmark: force the CPU backend so per-call jax ops do
-# not round-trip a remote accelerator
+# host-side ingest benchmark: force the CPU backend so per-call jax ops stay
+# on the host
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax  # noqa: E402
 
